@@ -1,12 +1,13 @@
-"""adi_thermal_fields_tpu — TPU-native transient 3-D heat conduction for WAAM.
+"""adi_thermal_fields_tpu — transient 3-D heat conduction for WAAM in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 ``Matemusi/ADI_thermal_fields``: ADI time stepping with batched tridiagonal
 solves on Cartesian masked-voxel and cylindrical (r, phi, z) grids, unified
 Dirichlet/Neumann/Robin boundary conditions, element birth, STL geometry with
 voxel boundary-area correction, analytic validation oracles, and VTK/GIF
-output — redesigned TPU-first (fixed shapes, functional updates, lax.scan
-recurrences, Pallas fused sweeps, jax.sharding domain decomposition).
+output — redesigned for accelerators (fixed shapes, functional updates,
+batched Thomas solves: lax.scan or one Pallas-Triton kernel on NVIDIA GPUs,
+jax.sharding domain decomposition).
 """
 
 from .core.grid import CartesianGrid, CylindricalGrid

@@ -372,6 +372,9 @@ def run(args) -> dict:
 
 
 def main(argv=None):
+    from ..core.backend import configure_compile_cache
+
+    configure_compile_cache()
     return run(build_argparser().parse_args(argv))
 
 

@@ -10,7 +10,7 @@ superheat or inter-layer dwell that equalizes it.
 
 This capability has no reference analogue (the reference's Numba/CuPy cores,
 adi3d_numba_coeff.py / adi3d_gpu_coeff.py, are not differentiable); it exists
-because the TPU framework's step (`step/cartesian.adi_step`) is a pure
+because the framework's step (`step/cartesian.adi_step`) is a pure
 traceable function, so ``jax.grad`` of a scalar loss w.r.t. any schedule
 parameter flows through every Thomas solve of every sub-step (reverse-mode
 through ``lax.scan``, rematerialized per layer with ``jax.checkpoint`` to
@@ -389,6 +389,9 @@ def run(args) -> dict:
 
 
 def main(argv=None):
+    from ..core.backend import configure_compile_cache
+
+    configure_compile_cache()
     args = build_argparser().parse_args(argv)
     return run(args)
 

@@ -55,6 +55,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def run(args) -> dict:
+    if args.out:     # fail before simulating, not after
+        from ..io.gif import gif_modules
+
+        gif_modules()
     import jax.numpy as jnp
 
     from ..birth.layers import track_activation_times
@@ -145,10 +149,9 @@ def run(args) -> dict:
 
 
 def _save_gif(path, frames, plate_cells, args):
-    import matplotlib
-    matplotlib.use("Agg")
-    import imageio.v2 as imageio
-    import matplotlib.pyplot as plt
+    from ..io.gif import gif_modules
+
+    plt, imageio = gif_modules()
 
     images = []
     vmax = max(np.nanmax(np.where(a, T, np.nan)) for _, T, a in frames if a.any())
@@ -170,6 +173,9 @@ def _save_gif(path, frames, plate_cells, args):
 
 
 def main(argv=None):
+    from ..core.backend import configure_compile_cache
+
+    configure_compile_cache()
     args = build_argparser().parse_args(argv)
     run(args)
 

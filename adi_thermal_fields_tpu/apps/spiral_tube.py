@@ -129,6 +129,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def run(args) -> dict:
+    if args.out:     # fail before simulating, not after
+        from ..io.gif import gif_modules
+
+        gif_modules()
     import jax
     import jax.numpy as jnp
 
@@ -512,10 +516,9 @@ def run(args) -> dict:
 
 
 def _save_gif(path, frames, grid, args):
-    import matplotlib
-    matplotlib.use("Agg")
-    import imageio.v2 as imageio
-    import matplotlib.pyplot as plt
+    from ..io.gif import gif_modules
+
+    plt, imageio = gif_modules()
 
     images = []
     vmax = max(np.nanmax(np.where(a, T, np.nan)) for _, T, a in frames)
@@ -538,6 +541,9 @@ def _save_gif(path, frames, grid, args):
 
 
 def main(argv=None):
+    from ..core.backend import configure_compile_cache
+
+    configure_compile_cache()
     run(build_argparser().parse_args(argv))
 
 

@@ -1,7 +1,7 @@
 """WAAM deposition from an STL model (flagship CLI app).
 
-Pipeline (mirrors reference waam_from_stl_v7_mm.py:375-622, rebuilt
-TPU-first): STL (mm) -> native voxelization + solidify -> z-slab layer
+Pipeline (mirrors reference waam_from_stl_v7_mm.py:375-622, rebuilt as
+jitted JAX programs): STL (mm) -> native voxelization + solidify -> z-slab layer
 extraction -> per-layer print-time estimate from slab area / bead width /
 scan speed -> event-driven ADI loop with element birth (device-resident
 sub-stepping; functional pack rebuild, no recompilation per birth) -> VTK
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -83,8 +84,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cfl", type=float, default=2.0)
     p.add_argument("--precision", choices=["float32", "float64", "bfloat16"],
                    default="float32",
-                   help="bfloat16 = bandwidth mode (f32 solve precision; "
-                        "see BASELINE.md for accuracy characteristics)")
+                   help="bfloat16 = storage mode (f32 solve, stochastic "
+                        "rounding of every bf16 store)")
     # output
     p.add_argument("--nframes", type=int, default=12)
     p.add_argument("--save_vtk", type=int, default=0)
@@ -228,6 +229,17 @@ def run(args) -> dict:
 
     os.makedirs(args.outdir, exist_ok=True)
     mesh, mask_full, origin, d = load_voxels(args)
+    if getattr(args, "mesh", ""):
+        # the fields are placed in the x-sweep layout (y over the mesh's
+        # first axis, z over its second): extend the grid at its high ends
+        # with void cells (identity rows, inert) until those axes divide
+        p_, q_ = (int(v) for v in args.mesh.lower().split("x"))
+        _, ny_, nz_ = mask_full.shape
+        ext = [(0, 0), (0, -ny_ % p_), (0, -nz_ % q_)]
+        if any(e for _, e in ext):
+            mask_full = np.pad(mask_full, ext)
+            log(f"grid padded with void to {mask_full.shape} for the "
+                f"{args.mesh} mesh", tag="mesh")
     dx, _, dz = d
     nx, ny, nz = mask_full.shape
     grid = CartesianGrid(nx, ny, nz, dx, dz=dz)
@@ -303,17 +315,8 @@ def run(args) -> dict:
         crits_np = np.atleast_1d(np.asarray(vals))
 
     # bf16 with round-to-nearest freezes slow cooling (sub-quantum update
-    # dropout); stochastic rounding is the documented fix.  It needs the
-    # TPU PRNG (single-device AND mesh pallas branches support it); a bf16
-    # run on any other backend would get round-to-nearest, so warn loudly.
-    import jax
-    want_sr = args.precision == "bfloat16"
-    use_sr = want_sr and jax.default_backend() == "tpu"
-    if want_sr and not use_sr:
-        log("bfloat16 WITHOUT stochastic rounding (non-TPU backend): "
-            "round-to-nearest drops sub-quantum updates — slow cooling may "
-            "freeze entirely; use float32 for trustworthy results here",
-            tag="warn")
+    # dropout); stochastic rounding is the documented fix
+    use_sr = args.precision == "bfloat16"
 
     # variable-property physics: latent heat (apparent cp), melt-pool
     # convection proxy, radiation — the terms that dominate at 1500 C
@@ -444,9 +447,14 @@ def run(args) -> dict:
                      interpass_T=args.interpass_T,
                      interpass_dwell=args.interpass_dwell_s,
                      interpass_max_dwell=args.interpass_max_dwell_s)
+    t_loop = time.perf_counter()
     T, active, t = loop.run(T, frame_times=frame_times, t_end=total_time,
                             on_frame=on_frame, start_t=start_t,
                             history_state=resume_history)
+    # the loop's final finite-check synchronises with the device
+    loop_s = time.perf_counter() - t_loop
+    log(f"event loop {loop_s:.2f} s wall for {len(layers)} layers "
+        "(compilation included)", tag="time")
     if loop.dwell_log:
         tot = sum(d for _, d in loop.dwell_log)
         log(f"interpass dwells: {len(loop.dwell_log)} layers, "
@@ -488,10 +496,15 @@ def run(args) -> dict:
             "adi_thermal_fields_tpu.apps.viewer on saved checkpoints",
             tag="viewer")
     return {"T": T, "active": active, "t": t, "frames": frames_meta,
-            "grid": grid, "layers": layers, "births": births}
+            "grid": grid, "layers": layers, "births": births,
+            "loop_s": loop_s, "engine": (prepare, advance),
+            "history": loop.history_state, "dt_cap": dt_cap}
 
 
 def main(argv=None):
+    from ..core.backend import configure_compile_cache
+
+    configure_compile_cache()
     run(build_argparser().parse_args(argv))
 
 

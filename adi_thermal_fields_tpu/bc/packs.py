@@ -12,7 +12,7 @@ Reproduces the semantics of the reference's
 * **Dirichlet** cells are flagged by a boolean mask + value field; the sweeps
   turn those rows into identity rows pinned at the value.
 
-TPU-first departure from the reference: the builder is a pure jittable
+Departure from the reference: the builder is a pure jittable
 function of the mask and BC fields, because element birth rebuilds packs on
 the hot path (waam_from_stl_v7_mm.py:534 rebuilds after every layer;
 single_track_on_plate.py:163 after every track column).  Rebuild is O(N)

@@ -1,6 +1,6 @@
 """Layer and track-column birth schedules as activation-time arrays.
 
-Same TPU-first design as birth/spiral.py: deposition kinematics are data
+Same design as birth/spiral.py: deposition kinematics are data
 (per-cell activation times), so the jitted time loop handles births with pure
 elementwise updates.  Covers the reference's Cartesian growth patterns:
 

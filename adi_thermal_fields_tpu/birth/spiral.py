@@ -1,6 +1,6 @@
 """Spiral/ring deposition schedules as precomputed activation-time arrays.
 
-TPU-first design: instead of the reference's host-side arc-marking loop
+Design: instead of the reference's host-side arc-marking loop
 (``mark_arc_on_layer``, quick_spiral_deposition_gif_v5.py:192-215, and its
 copy in tests/test_spiral_vs_analytic.py:59-77), the whole deposition
 kinematics is precomputed into one ``activation_time[nphi, nz]`` array.  The

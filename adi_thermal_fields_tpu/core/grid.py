@@ -1,7 +1,7 @@
 """Grid descriptors for the Cartesian voxel and cylindrical (r, phi, z) domains.
 
-Design notes (TPU-first)
-------------------------
+Design notes
+------------
 Grids are *static* metadata: plain frozen dataclasses holding shapes and
 spacings only.  Unlike the reference (``adi3d_numba_coeff.py:14-19`` keeps the
 boolean solid ``mask`` inside ``Grid3D``), the mask here is a *device array

@@ -9,13 +9,14 @@ between sweeps —
     z-sweep: T sharded ('a' over x, 'b' over y), z local
 
 Sharding constraints are placed on the sweep inputs; XLA lowers the
-transitions to all-to-alls over ICI (the ADI analogue of Ulysses-style
+transitions to all-to-alls (the ADI analogue of Ulysses-style
 sequence-parallel transposes).  The explicit masked Laplacian runs under the
-x-sweep layout; XLA inserts halo collectives for the shifted reads.
+x-sweep layout; XLA inserts halo collectives for the shifted reads.  The
+sweeps solve with the scan: a Pallas call has no partitioning rule for
+sharded operands.
 
 The reference has no distributed layer at all (SURVEY.md §2, "Parallelism
-strategies"); this module is new design territory required by the TPU port's
-scaling goals.
+strategies"); this module is new design.
 """
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def sharded_adi_step(grid: CartesianGrid, mat: Material, mesh: Mesh, *,
 
     Semantics identical to step/cartesian.py:adi_step; layouts are constrained
     per sweep so every tridiagonal system stays chip-local and the
-    inter-sweep resharding rides ICI all-to-alls."""
+    inter-sweep resharding rides all-to-alls."""
     a, b = mesh.axis_names
     kappa = mat.alpha
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]   # per-axis (anisotropic)
@@ -101,13 +102,13 @@ def sharded_adi_step(grid: CartesianGrid, mat: Material, mesh: Mesh, *,
 
         x = implicit_sweep(constrain(R0, 0), mask0, packs.coeff[0],
                            packs.dir_mask, packs.dir_val, packs.qflux[0],
-                           tg[0], dt, t_inf, axis=0)
+                           tg[0], dt, t_inf, axis=0, implementation="xla")
         x = implicit_sweep(constrain(x, 1), constrain(mask, 1), packs.coeff[1],
                            packs.dir_mask, packs.dir_val, packs.qflux[1],
-                           tg[1], dt, t_inf, axis=1)
+                           tg[1], dt, t_inf, axis=1, implementation="xla")
         x = implicit_sweep(constrain(x, 2), constrain(mask, 2), packs.coeff[2],
                            packs.dir_mask, packs.dir_val, packs.qflux[2],
-                           tg[2], dt, t_inf, axis=2)
+                           tg[2], dt, t_inf, axis=2, implementation="xla")
         return x
 
     return step
@@ -150,10 +151,10 @@ def sharded_adi_step_longz(grid: CartesianGrid, mat: Material, mesh: Mesh, *,
 
         x = implicit_sweep(R0, mask, packs.coeff[0], packs.dir_mask,
                            packs.dir_val, packs.qflux[0], tg[0], dt,
-                           t_inf, axis=0)
+                           t_inf, axis=0, implementation="xla")
         x = implicit_sweep(constrain(x), mask, packs.coeff[1], packs.dir_mask,
                            packs.dir_val, packs.qflux[1], tg[1], dt,
-                           t_inf, axis=1)
+                           t_inf, axis=1, implementation="xla")
         a, b, c, d = build_sweep_system(constrain(x), mask, packs.coeff[2],
                                         packs.dir_mask, packs.dir_val,
                                         packs.qflux[2], tg[2], dt, t_inf,

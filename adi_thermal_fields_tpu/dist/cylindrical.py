@@ -4,14 +4,12 @@ Sharding strategy per stage (field (nr, nphi, nz); nr is typically small —
 a wall a few dozen cells thick — so the radial axis always stays local):
 
     r-sweep:   shard (phi over 'a', z over 'b'), r local
-    phi-FFT:   shard (r?/z): phi must be local -> P(None, None, 'b') over z
-               with 'a' folded into z as well when nz >> nr (use P('a'?) no:
-               keep it simple: P(None, None, ('a','b')) shards z over the
-               whole mesh)
+    phi-FFT:   phi local, z sharded over the whole mesh: P(None, None, ('a','b'))
     z-sweep:   shard (phi over ('a','b')), z local
 
-XLA lowers the stage transitions to all-to-alls over ICI, exactly like the
-Cartesian layer (dist/cartesian.py).
+XLA lowers the stage transitions to all-to-alls, exactly like the Cartesian
+layer (dist/cartesian.py).  The sweeps solve with the scan: a Pallas call
+has no partitioning rule for sharded operands.
 """
 from __future__ import annotations
 
@@ -25,7 +23,6 @@ from ..step.cylindrical import RobinBC, ZFaceBC, _r_sweep, _z_sweep
 from ..solvers.spectral import phi_solve_spectral
 
 __all__ = ["sharded_cylindrical_step", "sharded_cylindrical_masked_step",
-           "sharded_cylindrical_masked_step_pallas",
            "sharded_cylindrical_masked_clamp_step",
            "sharded_cyl_varprop_step", "sharded_cyl_varprop_longz"]
 
@@ -36,46 +33,21 @@ def sharded_cylindrical_step(grid: CylindricalGrid, mat: Material, mesh: Mesh,
     """Jitted multi-chip cylindrical BE step ``step(T, dt)``; semantics of
     step/cylindrical.adi_step(scheme="be")."""
     a, b = mesh.axis_names
-    on_tpu = jax.default_backend() == "tpu"
 
     def constrain(x, spec):
         return jax.lax.with_sharding_constraint(x, NamedSharding(mesh, spec))
-
-    if on_tpu and grid.nphi > 1:
-        # TPU: the f32 FFT is inaccurate AND slow (NOTES.md); run the cyclic
-        # Pallas kernel per shard with phi local.
-        from jax import shard_map
-
-        from ..solvers.pallas_sweeps import fused_cyclic_phi
-        from ..solvers.spectral import phi_eigenvalue_factors
-
-        def _local_phi(X, fac):
-            return fused_cyclic_phi(X, fac)
-
-        phi_sm = shard_map(_local_phi, mesh=mesh,
-                           in_specs=(P(None, None, (a, b)),
-                                     P(None, (a, b))),
-                           out_specs=P(None, None, (a, b)), check_vma=False)
-
-        def phi_stage(X, dt):
-            fac_r = mat.alpha * dt * phi_eigenvalue_factors(grid, dtype=X.dtype)
-            fac = jnp.broadcast_to(fac_r[:, None], (grid.nr, grid.nz))
-            return phi_sm(constrain(X, P(None, None, (a, b))),
-                          constrain(fac, P(None, (a, b))))
-    else:
-        def phi_stage(X, dt):
-            return phi_solve_spectral(constrain(X, P(None, None, (a, b))),
-                                      grid, mat, 1.0, dt)
 
     @jax.jit
     def step(T, dt):
         # r-sweep: r local, batch (phi, z) sharded
         X = _r_sweep(constrain(T, P(None, a, b)), grid, mat, dt,
-                     robin_outer, robin_inner)
+                     robin_outer, robin_inner, implementation="xla")
         # phi solve: phi local, z sharded over the full mesh
-        X = phi_stage(X, dt)
+        X = phi_solve_spectral(constrain(X, P(None, None, (a, b))),
+                               grid, mat, 1.0, dt)
         # z-sweep: z local, phi sharded over the full mesh
-        X = _z_sweep(constrain(X, P(None, (a, b), None)), grid, mat, dt, zbc)
+        X = _z_sweep(constrain(X, P(None, (a, b), None)), grid, mat, dt, zbc,
+                     implementation="xla")
         return constrain(X, P(None, a, b))
 
     return step
@@ -103,7 +75,7 @@ def sharded_cylindrical_masked_step(grid: CylindricalGrid, mat: Material,
 
     Each sweep's RHS is pinned to the layout keeping its solve axis local
     (the masked phi solve is mask-broken *cyclic* Thomas, so phi must be
-    chip-local); XLA lowers the transitions to ICI all-to-alls and the
+    chip-local); XLA lowers the transitions to all-to-alls and the
     mask-shift halo reads to collective-permutes."""
     from ..step.cylindrical_masked import adi_step_masked_robin
 
@@ -118,112 +90,9 @@ def sharded_cylindrical_masked_step(grid: CylindricalGrid, mat: Material,
         out = adi_step_masked_robin(
             T, grid, mat, dt=dt, active=active, robin_outer=robin_outer,
             zbc=zbc, robin_inner=robin_inner, h_void=h_void,
-            T_inf_void=T_inf_void, h_front=h_front, constrain=cz)
+            T_inf_void=T_inf_void, h_front=h_front, constrain=cz,
+            implementation="xla")
         return cz(out, "r")
-
-    return step
-
-
-def sharded_cylindrical_masked_step_pallas(grid: CylindricalGrid,
-                                           mat: Material, mesh: Mesh, *,
-                                           robin_outer: RobinBC, zbc: ZFaceBC,
-                                           robin_inner: RobinBC | None = None,
-                                           h_void: float = 0.0,
-                                           T_inf_void: float = 20.0,
-                                           h_front: float | None = None,
-                                           interpret: bool | None = None):
-    """Production multi-chip masked-Robin step: the compressed masked
-    kernels (solvers/pallas_fields.py) run per shard via shard_map with each
-    sweep's solve axis chip-local — the cylindrical analogue of
-    dist/cartesian_pallas.  ``step(T, active, dt)``; the plan (coefficient
-    codes, sinks, geometry) rebuilds in-jit from the mask with sharding
-    constraints, so birth events stay functional."""
-    from jax import shard_map
-
-    from ..solvers.pallas_fields import (fused_masked_cyclic_axis1,
-                                         fused_masked_sweep)
-    from ..step.cylindrical_masked import build_masked_robin_plan
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    specs = _stage_specs(mesh)
-    alpha = mat.alpha
-
-    def cz(x, stage):
-        return jax.lax.with_sharding_constraint(
-            x, NamedSharding(mesh, specs[stage]))
-
-    # solve-layout specs: r/z sweeps run axis-first; the phi sweep runs the
-    # AXIS-1 cyclic kernel in the NATURAL layout (no per-step transposes)
-    a, b = mesh.axis_names
-    sol = {"r": P(None, a, b),            # (r, phi, z): r local
-           "phi": P(None, None, (a, b)),  # (r, phi, z): phi local, z sharded
-           "z": P(None, None, (a, b))}    # (z, r, phi): z local, phi sharded
-
-    def czs(x, stage):
-        return jax.lax.with_sharding_constraint(
-            x, NamedSharding(mesh, sol[stage]))
-
-    def sweep_open(stage, axis):
-        def local(d, code, sink, srhs, glo, ghi, fac, ambient):
-            return fused_masked_sweep(d, code, sink, glo, ghi, fac, srhs,
-                                      ambient, interpret=interpret)
-
-        sm = shard_map(local, mesh=mesh,
-                       in_specs=(sol[stage], sol[stage], sol[stage],
-                                 sol[stage], P(None), P(None), P(), P()),
-                       out_specs=sol[stage], check_vma=False)
-
-        def run(d, comp, fac, ambient):
-            code, sink, srhs, glo, ghi = comp
-            mv = lambda t: jnp.moveaxis(t, axis, 0)
-            x = sm(czs(mv(d), stage), czs(code, stage), czs(sink, stage),
-                   czs(srhs, stage), glo, ghi, fac, ambient)
-            return jnp.moveaxis(x, 0, axis)
-
-        return run
-
-    def sweep_cyclic_phi():
-        def local(d, code, sink, srhs, geo, fac, ambient):
-            return fused_masked_cyclic_axis1(d, code, sink, srhs, geo, fac,
-                                             ambient, interpret=interpret)
-
-        # geo is (nr, nz): r replicated, z sharded over the whole mesh
-        sm = shard_map(local, mesh=mesh,
-                       in_specs=(sol["phi"], sol["phi"], sol["phi"],
-                                 sol["phi"], P(None, (a, b)), P(), P()),
-                       out_specs=sol["phi"], check_vma=False)
-
-        def run(d, comp, fac, ambient):
-            code, sink, srhs, geo = comp
-            cg = jax.lax.with_sharding_constraint(
-                geo, NamedSharding(mesh, P(None, (a, b))))
-            return sm(czs(d, "phi"), czs(code, "phi"), czs(sink, "phi"),
-                      czs(srhs, "phi"), cg, fac, ambient)
-
-        return run
-
-    run_r = sweep_open("r", 0)
-    run_phi = sweep_cyclic_phi()
-    run_z = sweep_open("z", 2)
-
-    @jax.jit
-    def step(T, active, dt):
-        active = active.astype(bool)
-        plan = build_masked_robin_plan(
-            grid, mat, active, robin_outer=robin_outer, zbc=zbc,
-            robin_inner=robin_inner, h_void=h_void, T_inf_void=T_inf_void,
-            h_front=h_front, dtype=T.dtype)
-        fac = jnp.asarray(dt * alpha, T.dtype)
-        ambient = plan.ambient
-
-        # the kernels fold the per-sweep prefold (sink_rhs/pin/ambient) —
-        # the raw field streams straight in (VERDICT r2 #2)
-        X = run_r(cz(T, "r"), plan.compressed[0], fac, ambient)
-        if plan.compressed[1] is not None:
-            X = run_phi(cz(X, "phi"), plan.compressed[1], fac, ambient)
-        X = run_z(cz(X, "z"), plan.compressed[2], fac, ambient)
-        return cz(X, "r")
 
     return step
 
@@ -279,10 +148,8 @@ def sharded_cyl_varprop_step(grid: CylindricalGrid, mat_ref: Material,
     Layouts follow _stage_specs: each sweep's solve axis chip-local, batch
     axes sharded; the property fields k(T^n), 1/(rho cp(T^n)) are elementwise
     in T so XLA re-shards them with the RHS (the harmonic face folds add one
-    halo collective-permute per axis).  Solvers are the XLA scans — the
-    globally-shaped Pallas field kernels cannot be partitioned (see the
-    constrain note in adi_step_cyl_varprop); a shard_map Pallas tier is a
-    real-multichip optimization.
+    halo collective-permute per axis).  Solvers are the scans (see the
+    constrain note in adi_step_cyl_varprop).
     """
     from ..step.cylindrical_varprop import (adi_step_cyl_varprop,
                                             adi_step_cyl_varprop_masked)
@@ -312,78 +179,6 @@ def sharded_cyl_varprop_step(grid: CylindricalGrid, mat_ref: Material,
                 T_inf_void=T_inf_void, h_front=h_front,
                 emissivity=emissivity, implementation="xla", constrain=cz)
             return cz(out, "r")
-
-    return step
-
-
-def sharded_cyl_varprop_step_pallas(grid: CylindricalGrid,
-                                    mat_ref: Material, mesh: Mesh, *,
-                                    robin_outer: RobinBC, zbc: ZFaceBC,
-                                    k_table=None, cp_table=None,
-                                    robin_inner: RobinBC | None = None,
-                                    h_void: float = 0.0,
-                                    T_inf_void: float = 20.0,
-                                    h_front: float | None = None,
-                                    emissivity: float = 0.0,
-                                    interpret: bool = False):
-    """Sharded Pallas tier for the cylindrical varprop family (closes the
-    last dist-layer asymmetry: the Cartesian family already runs fused
-    kernels per shard, dist/varprop.py, while this configuration fell back
-    to XLA scans).  ``step(T, active, dt)``, backward Euler.
-
-    Division of labor (the dist/varprop pattern): the coupling/sink/srhs
-    STREAM builds stay in global XLA — they are elementwise + one-cell
-    shifts, so cross-shard halos lower to collective-permutes — and only
-    the three tridiagonal SOLVES run as shard_map-wrapped fused
-    vp-fields kernels (solvers/pallas_vpfields.py) on each shard's local
-    block, via adi_step_cyl_varprop's ``pallas_solvers`` hook.  Per-stage
-    layouts are _stage_specs (solve axis chip-local); the z solve keeps
-    the natural-rhs/out kernel so the z streams stay z-leading per shard.
-    New-design obligation (SURVEY §7) — the reference has no distributed
-    layer."""
-    from jax import shard_map
-
-    from ..solvers.differentiable import vp_cyclic_solve, vp_sweep_solve
-    from ..step.cylindrical_varprop import adi_step_cyl_varprop
-
-    specs = _stage_specs(mesh)
-    a, b = mesh.axis_names
-    sp_r, sp_p, sp_z = specs["r"], specs["phi"], specs["z"]
-    sp_zlead = P(None, None, (a, b))   # z-leading (nz, nr, nphi) streams
-    sp_geo_p = P(None, (a, b))         # phi geo2d (nr, nz), z sharded
-
-    def cz(x, stage):
-        return jax.lax.with_sharding_constraint(
-            x, NamedSharding(mesh, specs[stage]))
-
-    r_solve = shard_map(
-        lambda d, fhi, dw, sink, srhs, glo, ghi: vp_sweep_solve(
-            d, fhi, dw, sink, srhs, glo, ghi, interpret=interpret),
-        mesh=mesh, in_specs=(sp_r,) * 5 + (P(), P()), out_specs=sp_r,
-        check_vma=False)
-    phi_solve = shard_map(
-        lambda d, flo, dw, sink, srhs, geo: vp_cyclic_solve(
-            d, flo, dw, sink, srhs, geo, interpret=interpret),
-        mesh=mesh, in_specs=(sp_p,) * 5 + (sp_geo_p,), out_specs=sp_p,
-        check_vma=False)
-    z_solve = shard_map(
-        lambda d, fhi, dw, sink, srhs, glo, ghi: vp_sweep_solve(
-            d, fhi, dw, sink, srhs, glo, ghi, interpret=interpret,
-            nat_rhs_out=True),
-        mesh=mesh, in_specs=(sp_z,) + (sp_zlead,) * 4 + (P(), P()),
-        out_specs=sp_z, check_vma=False)
-    solvers = {"r": r_solve, "phi": phi_solve, "z": z_solve}
-
-    @jax.jit
-    def step(T, active, dt):
-        out = adi_step_cyl_varprop(
-            cz(T, "r"), grid, mat_ref, dt=dt, robin_outer=robin_outer,
-            zbc=zbc, k_table=k_table, cp_table=cp_table,
-            robin_inner=robin_inner, active=active, h_void=h_void,
-            T_inf_void=T_inf_void, h_front=h_front,
-            emissivity=emissivity, implementation="pallas",
-            interpret=interpret, constrain=cz, pallas_solvers=solvers)
-        return cz(out, "r")
 
     return step
 

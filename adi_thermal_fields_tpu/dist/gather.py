@@ -1,7 +1,7 @@
 """Host gather of (possibly multi-host-sharded) device fields.
 
 The reference's only device->host movement is ``cp.asnumpy`` before VTK
-writes (waam_from_stl_v7_mm.py:499-501).  The TPU-native equivalent must
+writes (waam_from_stl_v7_mm.py:499-501).  The JAX equivalent must
 also cover fields sharded over a ``jax.sharding.Mesh`` that spans
 *processes*: ``np.asarray`` only works when every shard is addressable from
 this process, which is false on a real multi-host pod.
@@ -11,7 +11,7 @@ this process, which is false on a real multi-host pod.
   * unsharded / single-process sharded -> plain ``np.asarray`` (the shards
     are addressable; jax assembles them);
   * multi-process sharded -> ``multihost_utils.process_allgather`` (an
-    all-gather over ICI/DCN; every process receives the full array — write
+    all-gather across processes; every process receives the full array — write
     output on process 0 only, see ``is_output_process``);
   * plain numpy input -> returned as-is.
 """

@@ -14,14 +14,14 @@ analogue"), the alternative is to solve the tridiagonal systems in place:
      factorization; fully parallel across chips and batch);
   2. the first/last-row equations then close over interface unknowns only,
      giving a global tridiagonal system of size 2*P (P = chips along the
-     axis), whose coefficients are all-gathered over ICI — 8 numbers per
+     axis), whose coefficients are all-gathered — 8 numbers per
      batch element per chip — and solved redundantly on every chip;
   3. interiors are recovered locally from the affine expression.
 
 Communication: ONE all-gather of 8 B/batch-element/chip (vs two full-field
 all-to-alls for the transpose scheme).  Extra compute: ~3x the local Thomas
-flops.  Which wins depends on the batch size per chip and ICI bandwidth —
-benchmark on real hardware (NOTES.md); both strategies are provided.
+flops.  Which wins depends on the batch size per device and the
+interconnect's bandwidth; both strategies are provided.
 
 Convention matches solvers/thomas.py: systems along axis 0, trailing axes
 batch; a[0] and c[n-1] ignored (zero).

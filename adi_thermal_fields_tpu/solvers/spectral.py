@@ -10,7 +10,8 @@ Mirrors reference ``phi_solve_spectral`` (adi3d_cyl_phi_v3.py:302-329),
 including the axis-regularity convention ``fac = 0`` for the innermost radial
 row *when the grid touches the axis* (full disk).  For annular grids
 (``r_inner > 0``) every row has a genuine radius, so no identity row is used.
-Uses XLA's TPU FFT (jnp.fft.rfft/irfft) in place of numpy.fft.
+Uses XLA's FFT (jnp.fft.rfft/irfft; cuFFT on NVIDIA GPUs) in place of
+numpy.fft.
 """
 from __future__ import annotations
 

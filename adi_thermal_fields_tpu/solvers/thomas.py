@@ -1,4 +1,4 @@
-"""Batched tridiagonal (Thomas) solvers as XLA-friendly scans.
+"""Batched tridiagonal (Thomas) solvers: the one solve every step calls.
 
 The reference solves tridiagonal systems three ways:
   * a scalar per-pencil Thomas under Numba (adi3d_numba_coeff.py:120-130),
@@ -6,13 +6,17 @@ The reference solves tridiagonal systems three ways:
     axis (adi3d_gpu_coeff.py:140-152),
   * a NumPy batch for cylindrical sweeps (adi3d_cyl_phi_v3.py:71-89).
 
-On TPU the idiomatic formulation is the batched one: every pencil
-perpendicular to the solve axis is a system, all solved simultaneously by the
-VPU, with the inherently sequential recurrence expressed as ``lax.scan`` over
-the *leading* axis so each scan step is one fused elementwise op over the
-(batch...) trailing dims (sublane x lane friendly).  A fused Pallas kernel
-replaces this on the performance path (see solvers/pallas_sweeps.py) —
-this module is the semantics reference and the fallback.
+Here every pencil perpendicular to the solve axis is a system, all solved
+at once.  Two implementations share one contract:
+
+* ``thomas_scan``: the recurrence as ``lax.scan`` over the *leading* axis,
+  each scan step one fused elementwise op over the trailing batch dims.
+  Runs anywhere, differentiates natively, and is the reference.
+* ``solvers.thomas_triton.thomas_pallas``: one Pallas-Triton kernel with
+  the recurrence in registers (NVIDIA GPUs; Pallas interpreter on CPU).
+
+``thomas`` picks between them through ``core.backend.resolve_implementation``
+("auto": the kernel on a GPU, the scan on the CPU).
 
 Conventions: for systems ``a[i] x[i-1] + b[i] x[i] + c[i] x[i+1] = d[i]``,
 ``a[0]`` and ``c[n-1]`` are ignored (treated as zero).
@@ -23,11 +27,28 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["thomas", "thomas_along_axis", "cyclic_thomas"]
+from ..core.backend import resolve_implementation
+
+__all__ = ["thomas", "thomas_scan", "thomas_along_axis", "cyclic_thomas"]
 
 
-def thomas(a: jax.Array, b: jax.Array, c: jax.Array, d: jax.Array) -> jax.Array:
+def thomas(a, b, c, d, *, implementation: str = "auto",
+           interpret: bool = False) -> jax.Array:
     """Solve tridiagonal systems along axis 0; trailing axes are batch.
+
+    ``implementation``: "auto", "pallas" or "xla" (core/backend.py);
+    ``interpret`` runs the Pallas kernel in the interpreter (CPU tests)."""
+    if resolve_implementation(implementation, interpret) == "pallas":
+        from .thomas_triton import thomas_pallas
+
+        return thomas_pallas(a, b, c, d, interpret=interpret)
+    return thomas_scan(a, b, c, d)
+
+
+def thomas_scan(a: jax.Array, b: jax.Array, c: jax.Array,
+                d: jax.Array) -> jax.Array:
+    """Solve tridiagonal systems along axis 0 with ``lax.scan``; trailing
+    axes are batch.
 
     All inputs share one shape ``(n, *batch)``.  Returns ``x`` of that shape.
     Standard Thomas forward elimination + back substitution, batched:
@@ -55,16 +76,19 @@ def thomas(a: jax.Array, b: jax.Array, c: jax.Array, d: jax.Array) -> jax.Array:
     return x
 
 
-def thomas_along_axis(a, b, c, d, axis: int) -> jax.Array:
-    """Solve tridiagonal systems along an arbitrary axis of nd arrays."""
+def thomas_along_axis(a, b, c, d, axis: int, **kw) -> jax.Array:
+    """Solve tridiagonal systems along an arbitrary axis of nd arrays
+    (``kw``: ``implementation``/``interpret`` as for ``thomas``)."""
     if axis == 0:
-        return thomas(a, b, c, d)
+        return thomas(a, b, c, d, **kw)
     mv = lambda t: jnp.moveaxis(t, axis, 0)
-    x = thomas(mv(a), mv(b), mv(c), mv(d))
+    x = thomas(mv(a), mv(b), mv(c), mv(d), **kw)
     return jnp.moveaxis(x, 0, axis)
 
 
-def cyclic_thomas(a, b, c, d, alpha=None, beta=None) -> jax.Array:
+def cyclic_thomas(a, b, c, d, alpha=None, beta=None, *,
+                  implementation: str = "auto",
+                  interpret: bool = False) -> jax.Array:
     """Solve batched *cyclic* (periodic) tridiagonal systems along axis 0.
 
     System: ``a[i] x[i-1] + b[i] x[i] + c[i] x[i+1] = d[i]`` with wrap-around
@@ -78,6 +102,8 @@ def cyclic_thomas(a, b, c, d, alpha=None, beta=None) -> jax.Array:
     textbook-correct perturbation vector: solve ``B y = d`` and ``B z = u``
     where ``B = A - u v^T``, ``u = (g, ..., alpha)``, ``v = (1, ..., beta/g)``
     with gauge ``g = -b[0]``, then ``x = y - z (v^T y)/(1 + v^T z)``.
+    Both inner solves go through ``thomas`` (``implementation``/``interpret``
+    as there).
     """
     n = d.shape[0]
     if beta is None:
@@ -93,10 +119,11 @@ def cyclic_thomas(a, b, c, d, alpha=None, beta=None) -> jax.Array:
     gamma = -b[0]
     b_mod = b.at[0].add(-gamma).at[n - 1].add(-alpha * beta / gamma)
 
-    y = thomas(a, b_mod, c, d)
+    kw = dict(implementation=implementation, interpret=interpret)
+    y = thomas(a, b_mod, c, d, **kw)
 
     u = jnp.zeros_like(d).at[0].set(gamma).at[n - 1].set(alpha)
-    z = thomas(a, b_mod, c, u)
+    z = thomas(a, b_mod, c, u, **kw)
 
     fact = (y[0] + beta * y[n - 1] / gamma) / (1.0 + z[0] + beta * z[n - 1] / gamma)
     return y - fact[None, ...] * z

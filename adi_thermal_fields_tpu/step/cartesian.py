@@ -1,4 +1,4 @@
-"""Cartesian masked theta-scheme ADI time step (TPU-native).
+"""Cartesian masked theta-scheme ADI time step.
 
 One step advances ``T^{n+1} = W(V(U(R0)))`` where
 ``R0 = T^n + dt*kappa*(1-theta)*(Lx+Ly+Lz) T^n`` (mask-aware Laplacians) and
@@ -16,13 +16,13 @@ fraction of the Robin flux is NOT included in R0 — Robin enters only through
 the per-axis implicit sink ``dt*C_ax`` terms (comment at
 adi3d_numba_coeff.py:297-298, "явный робин уже в R0").
 
-TPU formulation: instead of the CPU reference's ragged per-pencil compaction,
-every pencil is a full-length fixed-shape system with couplings zeroed across
-mask boundaries and identity rows in void — the formulation the reference's
-own GPU backend uses (adi3d_gpu_coeff.py:154-211), proven numerically
-equivalent by its quick_compare_neumann_robin_backend driver.  Fixed shapes
-let XLA tile the batched Thomas scan onto the VPU; the fused Pallas kernels
-(solvers/pallas_sweeps.py) implement the same math with one HBM round trip.
+Batched formulation: instead of the CPU reference's ragged per-pencil
+compaction, every pencil is a full-length fixed-shape system with couplings
+zeroed across mask boundaries and identity rows in void — the formulation the
+reference's own GPU backend uses (adi3d_gpu_coeff.py:154-211), proven
+numerically equivalent by its quick_compare_neumann_robin_backend driver.
+Each sweep is one batched solve (solvers/thomas.py): the Triton kernel on a
+GPU, the scan on the CPU.
 """
 from __future__ import annotations
 
@@ -85,24 +85,33 @@ def build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
 
 
 def implicit_sweep(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
-                   theta_gam, dt, t_inf, axis: int) -> jax.Array:
+                   theta_gam, dt, t_inf, axis: int, *,
+                   implementation: str = "auto",
+                   interpret: bool = False) -> jax.Array:
     """One per-axis implicit sweep (reference sweep_axis0/1/2,
     adi3d_numba_coeff.py:132-237) in full-shape batched form."""
     a, b, c, d = build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val,
                                     qflux_ax, theta_gam, dt, t_inf, axis)
+    kw = dict(implementation=implementation, interpret=interpret)
     if axis == 0:
-        return thomas(a, b, c, d)
+        return thomas(a, b, c, d, **kw)
     mv = partial(jnp.moveaxis, source=axis, destination=0)
-    x = thomas(mv(a), mv(b), mv(c), mv(d))
+    x = thomas(mv(a), mv(b), mv(c), mv(d), **kw)
     return jnp.moveaxis(x, 0, axis)
 
 
 def adi_step(T: jax.Array, mask: jax.Array, packs: CoeffPacks,
              grid: CartesianGrid, mat: Material, *, dt, theta: float = 0.5,
-             t_inf=0.0, source: jax.Array | None = None) -> jax.Array:
+             t_inf=0.0, source: jax.Array | None = None,
+             implementation: str = "auto",
+             interpret: bool = False) -> jax.Array:
     """Advance one ADI step (reference adi_step_numba_coeff,
     adi3d_numba_coeff.py:290-302).  Pure function; jit over (T, mask, packs,
     dt, t_inf) with grid/mat static.
+
+    ``implementation``/``interpret``: the tridiagonal solver tier
+    (solvers/thomas.py; "auto" = the Triton kernel on a GPU, the scan on
+    the CPU).
 
     ``source``: optional volumetric heat rate [W/m^3] added explicitly to R0
     as ``dt*S/(rho cp)`` on in-mask cells (the Cartesian analogue of the
@@ -122,12 +131,13 @@ def adi_step(T: jax.Array, mask: jax.Array, packs: CoeffPacks,
     if source is not None:
         R0 = R0 + jnp.where(mask, dt * source / (mat.rho * mat.cp), 0.0)
 
+    kw = dict(implementation=implementation, interpret=interpret)
     U = implicit_sweep(R0, mask, packs.coeff[0], packs.dir_mask, packs.dir_val,
-                       packs.qflux[0], tg[0], dt, t_inf, axis=0)
+                       packs.qflux[0], tg[0], dt, t_inf, axis=0, **kw)
     V = implicit_sweep(U, mask, packs.coeff[1], packs.dir_mask, packs.dir_val,
-                       packs.qflux[1], tg[1], dt, t_inf, axis=1)
+                       packs.qflux[1], tg[1], dt, t_inf, axis=1, **kw)
     W = implicit_sweep(V, mask, packs.coeff[2], packs.dir_mask, packs.dir_val,
-                       packs.qflux[2], tg[2], dt, t_inf, axis=2)
+                       packs.qflux[2], tg[2], dt, t_inf, axis=2, **kw)
     return W
 
 

@@ -41,57 +41,7 @@ from ..core.material import Material
 from ..solvers.thomas import thomas
 
 __all__ = ["PropertyTable", "apparent_cp", "melt_pool_enhanced_k",
-           "adi_step_varprop", "adi_step_varprop_fused",
-           "adi_step_varprop_gstreams",
-           "build_varprop_codes", "build_varprop_fields"]
-
-# Route adi_step_varprop_fused(fuse_theta=None) through the ring-fused
-# theta+x-sweep kernel (fused_varprop_theta_sweep)?  A/B'd on v5e
-# (scripts/vp_ring_chip.py, 2026-08-18): all parity gates bitwise, fused
-# wins 1.12x scalar-h / 1.09x radiative-h at 384^3 — default ON.  This one
-# flag enables it for the engine, the WAAM CLI, and bench.py at once.
-FUSE_THETA_DEFAULT = True
-
-# Route adi_step_varprop_fused(gstreams=None) through the g-stream tier
-# (solvers/pallas_gstreams.py): the fields pass emits PRE-MULTIPLIED
-# coupling/sink streams so every sweep is a pure 4-stream FMA elimination
-# (no plan codes, no row lag, no h stream; radiative h folded in-register).
-# Keep-or-kill A/B (scripts/gstream_chip.py --mask_heavy, v5e 2026-08-19,
-# 384^3 56%-solid WAAM-like mask, same-session slope): the tier LOSES at
-# f32 (0.861x scalar-h, 0.893x radiative — its +11 B/cell of
-# pre-multiplied streams cost more than the code-decode they shed) but
-# WINS at bf16 (1.034x: halved state traffic raises the stream-overhead
-# ratio) -> default ON for sub-f32 states only.  Re-judged 2026-08-21
-# (scripts/r5_vp_bf16_znat.py, 384^3 radiative, same-session slope):
-# g-stream 11.32 ms vs classic 12.53 = 1.107x — the VERDICT r4 #5 keep
-# bar (>= 1.10x) met; the tier stays.
-G_STREAMS_DEFAULT = False          # f32 states: classic fused tier
-G_STREAMS_BF16_DEFAULT = True      # sub-f32 states: g-stream tier
-
-# Tier-2 y/z solves (solvers/pallas_vp2.py): derive fc/w/films IN
-# REGISTERS from T + a 1-byte code instead of streaming the prebuilt
-# fields — per sweep read rhs+T+code, write x (13 B/cell).  For z the
-# Tz/mz transposes + 12 B of stream writes + 12 B of stream reads also
-# disappear (~25 B/cell off the varprop model); for y the fc/w/h stream
-# reads (~8 B).  Defaults OFF until chip-gated (scripts/vp2z_cart_chip).
-# Cartesian tier-2 (vp2) y/z solves.  Chip gate 2026-08-20 05:02 (healthy
-# probe 12.0 s / 23.7 ms): parity 128^3 +z 6.1e-4 K, +y+z 7.3e-4 K; slope
-# A/B at 384^3 radiative (engine config; ratios — the harness inflated
-# absolutes ~19.6x, see scripts/r4_gates.py note): vp2-z 0.944x of
-# classic (15.0 -> ~14.2 ms), 512^3 vp2-z ~26.8 ms vs classic's recorded
-# 33.25 (1.24x) -> Z ON.  vp2-y+z measured 1.12x SLOWER than classic
-# (the y solve's in-register rebuild loses to streaming fc/w in the
-# natural-layout axis-1 kernel) -> Y stays OFF, refuted by that A/B.
-VP2_Z_DEFAULT = True
-VP2_Y_DEFAULT = False
-# bf16 states through the NATURAL-layout varprop z solve (f32 in-VMEM
-# relayout + stochastic-rounded downcast staging).  REFUTED on chip
-# 2026-08-21 (scripts/r5_vp_bf16_znat.py, 384^3 radiative, same-session
-# slope, parity bitwise): nat 20.67 ms vs transposed 12.53 — the mixed
-# upcast-relayout/stochastic-downcast staging costs far more than the
-# z transpose pair it removes.  Stays OFF (the kernel path remains for
-# re-judgement if the staging is ever rewritten).
-Z_NAT_VP_BF16_DEFAULT = False
+           "adi_step_varprop"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +51,10 @@ class PropertyTable:
 
     Evaluated as the CLAMP-SUM form ``v0 + sum_i s_i * clip(T - p_i, 0,
     dp_i)`` (slopes ``s_i`` precomputed in f64 on the host) — exactly the
-    same piecewise-linear function as ``jnp.interp``, but a pure FMA+clip
-    chain the VPU eats, instead of interp's searchsorted-compare chain +
-    two gathers over the full field (measured round 3: interp was 19.4 ms
-    of a 46.7 ms varprop step at 384^3 — 42% — evaluating k and cp)."""
+    same piecewise-linear function as ``jnp.interp``, but a pure
+    elementwise FMA+clip chain that fuses into its consumers, instead of
+    interp's searchsorted-compare chain + two gathers over the full
+    field."""
 
     points: tuple
     values: tuple
@@ -174,28 +124,6 @@ def melt_pool_enhanced_k(k_solid: float, T_solidus: float, T_liquidus: float,
         (k_solid, kl * enhancement))
 
 
-def _ev_tab(tab, const, T, dtype):
-    """Evaluate a property spec (None -> const, scalar, or callable) at T."""
-    if tab is None:
-        return jnp.full(T.shape, const, dtype)
-    if callable(tab):
-        return tab(T).astype(dtype)
-    return jnp.full(T.shape, float(tab), dtype)
-
-
-def _pointwise_tab(tab) -> bool:
-    """True when ``tab`` is a pure POINTWISE function of T — safe to
-    re-evaluate on a transposed field.  Arbitrary callables may close over
-    spatial fields in the natural (x, y, z) layout (the bimetal
-    substrate/deposit pattern), so they are only safe to evaluate in that
-    layout; their result is transposed instead.  Set a ``pointwise = True``
-    attribute on a custom callable to opt in to the cheaper transposed
-    re-evaluation."""
-    return (tab is None or not callable(tab)
-            or isinstance(tab, PropertyTable)
-            or getattr(tab, "pointwise", False))
-
-
 def _face_g(kf, axis, direction, mask):
     """Harmonic face conductivity toward the (axis, direction) neighbor;
     zero across mask boundaries and domain edges."""
@@ -212,7 +140,9 @@ def adi_step_varprop(T: jax.Array, mask: jax.Array, packs: CoeffPacks,
                      cp_table: PropertyTable | None = None,
                      dt, theta: float = 0.5, t_inf=0.0,
                      source: jax.Array | None = None,
-                     implementation: str = "auto") -> jax.Array:
+                     implementation: str = "auto",
+                     interpret: bool = False,
+                     constrain=None) -> jax.Array:
     """One theta-scheme ADI step with T-dependent k and/or cp.
 
     mat_ref: the reference material whose rho (constant) and cp were used to
@@ -220,13 +150,13 @@ def adi_step_varprop(T: jax.Array, mask: jax.Array, packs: CoeffPacks,
     k_table: a single PropertyTable (isotropic) or a 3-tuple of per-axis
     tables/constants (anisotropic — e.g. WAAM beads conduct better along
     the deposit direction than across layer interfaces).
-    implementation: "pallas" (fused field-coefficient sweeps), "xla"
-    (scan solver), or "auto" (pallas on TPU).
+    implementation / interpret: the tridiagonal solver tier
+    (solvers/thomas.py; "auto" = the Triton kernel on a GPU, the scan on
+    the CPU).
+    constrain: optional ``(x, axis) -> x`` hook applied to each sweep's
+    a, b, c, d; the multi-device engine passes sharding constraints that
+    keep the solve axis device-local (dist/cartesian.py's layouts).
     """
-    if implementation == "auto":
-        implementation = "pallas" if jax.default_backend() == "tpu" else "xla"
-    use_pallas = implementation == "pallas"
-    interp = jax.default_backend() != "tpu"
     mask = mask.astype(bool)
     dtype = T.dtype
     dt = jnp.asarray(dt, jnp.promote_types(dtype, jnp.float32))
@@ -281,496 +211,13 @@ def adi_step_varprop(T: jax.Array, mask: jax.Array, packs: CoeffPacks,
         c = jnp.where(pin, 0.0, c)
         b = jnp.where(pin, 1.0, b)
         d = jnp.where(pin, packs.dir_val, d)
+        if constrain is not None:
+            a, b, c, d = (constrain(v, axis) for v in (a, b, c, d))
         mv = lambda t: jnp.moveaxis(t, axis, 0)
-        if use_pallas:
-            from ..solvers.pallas_fields import fused_tridiag_fields
-
-            x = fused_tridiag_fields(mv(a), mv(b), mv(c), mv(d),
-                                     interpret=interp)
-        else:
-            x = thomas(mv(a), mv(b), mv(c), mv(d))
+        x = thomas(mv(a), mv(b), mv(c), mv(d),
+                   implementation=implementation, interpret=interpret)
         return jnp.moveaxis(x, 0, axis)
 
     U = sweep(R0, 0)
     V = sweep(U, 1)
     return sweep(V, 2)
-
-
-def build_varprop_codes(mask: jax.Array) -> tuple:
-    """Per-axis plan-lite sweep codes in each sweep's KERNEL layout for
-    ``adi_step_varprop_fused``: x in (x,y,z) and z in (z,x,y) for the
-    axis-0 kernel, y in the NATURAL (x,y,z) layout for the axis-1 kernel
-    (no y-sweep transposes).  Mask-dependent only — rebuild on birth
-    events, not per sub-step."""
-    from ..solvers.pallas_sweeps import sweep_code
-
-    return (sweep_code(mask, None, 0),
-            jnp.moveaxis(sweep_code(mask, None, 1), 0, 1),
-            sweep_code(mask, None, 2))
-
-
-def build_face_h_axes(mask: jax.Array, robin_h, radiation_scale=None,
-                      dtype=jnp.float32) -> tuple:
-    """Per-axis effective film streams carrying PER-FACE convective h
-    fields (and per-face radiative area scales) through the fused varprop
-    sweeps' single-h-per-cell sink model ``sink = sk*h*(n_exposed)``.
-
-    The fused kernels multiply the streamed film by the axis exposure
-    count ``n = e_lo + e_hi`` (in {0,1,2}); a per-face spec needs
-    different values on the two faces, so we pre-fold the face sum and
-    normalize by the count: ``A = (e_lo*h_lo + e_hi*h_hi)/max(n,1)`` —
-    the kernel's ``A*n`` then reconstructs the true face sum EXACTLY
-    (division by 2 is an exponent shift, n==0 cells contribute nothing).
-    ``B`` is the same fold over the per-face radiative area-ratio scales
-    (``geometry/bc_correction.build_corrected_robin_fields`` contract,
-    reference voxel_bc_correction.py:207-225) so a Picard radiative film
-    enters per sweep as ``A + h_rad(T)*B`` with NO extra stream vs the
-    scalar-conv radiative path.
-
-    Returns ``((Ax, Bx), (Ay, By), (Az, Bz))`` with the z pair already in
-    the z-leading (z,x,y) layout (it is mask-static — transposing once at
-    plan-build time keeps the per-step z solve transpose-free).  ``B`` is
-    None when ``radiation_scale`` is None.  Rebuild on birth events."""
-    from ..bc.faces import exposed_face
-    from ..bc.packs import _normalize_per_face
-
-    mask = mask.astype(bool)
-    h_pf = _normalize_per_face(robin_h)
-    s_pf = (None if radiation_scale is None
-            else _normalize_per_face(radiation_scale))
-    out = []
-    for ax, (flo, fhi) in enumerate((("x-", "x+"), ("y-", "y+"),
-                                     ("z-", "z+"))):
-        e_lo = exposed_face(mask, flo).astype(dtype)
-        e_hi = exposed_face(mask, fhi).astype(dtype)
-        inv_n = 1.0 / jnp.maximum(e_lo + e_hi, 1.0)
-
-        def fold(pf):
-            lo = pf[flo] if pf[flo] is not None else 0.0
-            hi = pf[fhi] if pf[fhi] is not None else 0.0
-            return ((e_lo * jnp.asarray(lo, dtype)
-                     + e_hi * jnp.asarray(hi, dtype)) * inv_n)
-
-        A = fold(h_pf)
-        # missing radiation_scale faces default to 1 (uncorrected), per
-        # the engine _compose_h contract
-        if s_pf is None:
-            B = None
-        else:
-            B = fold({f: (1.0 if s_pf[f] is None else s_pf[f])
-                      for f in (flo, fhi)})
-        if ax == 2:
-            A = jnp.moveaxis(A, 2, 0)
-            B = None if B is None else jnp.moveaxis(B, 2, 0)
-        out.append((A, B))
-    return tuple(out)
-
-
-def _table_spec(tab, default: float):
-    """Static kernel spec for a property: a float (constant) or the
-    PropertyTable contents as hashable tuples; None if ineligible for the
-    fused fields kernel (per-axis tuples, arbitrary callables)."""
-    import numpy as np
-
-    if tab is None:
-        return float(default)
-    if isinstance(tab, (int, float)):
-        return float(tab)
-    if isinstance(tab, PropertyTable):
-        return (tuple(float(v) for v in np.asarray(tab.points)),
-                tuple(float(v) for v in np.asarray(tab.values)))
-    return None
-
-
-def build_varprop_fields(T: jax.Array, mask: jax.Array,
-                         mat_ref: Material, k_table=None, cp_table=None, *,
-                         use_kernel: bool = False, interpret: bool = False,
-                         rad: tuple | None = None):
-    """Per-axis PRE-MASKED harmonic face-conductivity fields + 1/(rho cp).
-
-    ``fc[ax][i] = 2 k[i-1] k[i] / (k[i-1] + k[i])`` along ``ax`` where
-    cells i-1, i are both in-mask (0 across void/domain boundaries), with
-    k evaluated at T^n (Picard); anisotropic ``k_table`` tuples simply give
-    per-axis face fields.  One fused XLA pass (interp + harmonic + mask
-    zeroing fuse into the face-field writes); the fused kernels stream
-    these instead of raw k(T), shedding their in-register harmonic builds
-    (a vector divide + shift chain per group — the dominant op-count delta
-    vs the constant-coefficient sweeps).  Returns ``(fc3, w)`` in the
-    NATURAL (x, y, z) layout, in ``T.dtype``.
-
-    use_kernel: route through the one-HBM-pass Pallas kernel
-    (solvers/pallas_varprop.varprop_fields — stream T+mask, write
-    fx/fy/fz/w; the XLA formulation re-reads the materialized k(T) shifted
-    per face direction).  Falls back here for configurations the kernel
-    does not take: per-axis anisotropic k tuples, arbitrary callables,
-    f64.  SINGLE-DEVICE only — the sharded step (dist/varprop.py) needs
-    the global-XLA shifts so cross-shard face halos lower to collectives.
-
-    rad: static ``(emissivity, t_inf, h_conv)`` — also return the Picard
-    radiative film h(T) as a third result, evaluated inside the fields
-    pass (kernel path) so the step sheds its separate radiative_h pass
-    (a full extra T read)."""
-    dtype = T.dtype
-    mask = mask.astype(bool)
-
-    if use_kernel and jnp.promote_types(dtype, jnp.float32) == jnp.float32:
-        ks = _table_spec(k_table, mat_ref.k)
-        cs = _table_spec(cp_table, mat_ref.cp)
-        if ks is not None and cs is not None:
-            from ..solvers.pallas_varprop import varprop_fields
-
-            return varprop_fields(T, mask.astype(jnp.int8), k_spec=ks,
-                                  cp_spec=cs, rho=float(mat_ref.rho),
-                                  rad=rad, interpret=interpret)
-
-    def k_of(tab):
-        if tab is None:
-            return jnp.full(T.shape, mat_ref.k, dtype)
-        if callable(tab):
-            return tab(T)
-        return jnp.full(T.shape, float(tab), dtype)
-
-    if isinstance(k_table, (tuple, list)):
-        kfs = tuple(k_of(tab) for tab in k_table)
-    else:
-        kfs = (k_of(k_table),) * 3
-    fc = tuple(_face_g(kfs[ax], ax, -1, mask).astype(dtype)
-               for ax in range(3))
-    cpf = (cp_table(T) if cp_table is not None
-           else jnp.full(T.shape, mat_ref.cp, dtype))
-    w = (1.0 / (mat_ref.rho * cpf)).astype(dtype)
-    if rad is not None:
-        from ..bc.radiation import radiative_h
-
-        eps, tinf, hconv = rad
-        return fc, w, radiative_h(T, eps, tinf, h_conv=hconv)
-    return fc, w
-
-
-def adi_step_varprop_gstreams(T: jax.Array, mask: jax.Array,
-                              grid: CartesianGrid, mat_ref: Material, *,
-                              k_table=None, cp_table=None, dt,
-                              theta: float = 0.5, t_inf=0.0,
-                              robin_h: float = 0.0,
-                              h_field: jax.Array | None = None,
-                              emissivity=None, h_conv=0.0,
-                              source: jax.Array | None = None,
-                              rng_seed=None,
-                              interpret: bool = False) -> jax.Array:
-    """One varprop theta-scheme step through the G-STREAM kernels
-    (solvers/pallas_gstreams.py): the fields pass emits pre-multiplied
-    per-axis coupling streams ``g = theta*dt/d^2 * w * fc`` and Robin sink
-    fields ``sw = dt/d * h * w * n_exposed`` (radiative ``h(T)`` evaluated
-    in-register when ``emissivity`` is given — no separate XLA radiative
-    pass), so the theta+x ring, the natural-layout y sweep, and the z
-    sweep are pure FMA streams with NO plan codes.  Same physics as
-    ``adi_step_varprop_fused`` (flagship Robin-only BC set); requires
-    theta > 0, f32/bf16 states, and table-spec'able properties (use
-    ``adi_step_varprop_fused`` for the general cases — it routes here
-    itself when ``gstreams`` is enabled and the config is eligible)."""
-    from ..solvers.pallas_gstreams import (gstream_fields, gstream_sweep,
-                                           gstream_sweep_axis1,
-                                           gstream_theta_sweep)
-
-    if not theta > 0.0:
-        raise ValueError("the g-stream tier needs theta > 0 (the streams "
-                         "carry theta*dt*w*fc; use theta in {0.5, 1})")
-    ks = _table_spec(k_table, mat_ref.k)
-    cs = _table_spec(cp_table, mat_ref.cp)
-    if ks is None or cs is None:
-        raise ValueError("g-stream tier needs constant or PropertyTable "
-                         "k/cp (per-axis tuples and callables run the "
-                         "classic fused tier)")
-    mask = mask.astype(bool)
-    dtype = T.dtype
-    cdt = jnp.promote_types(dtype, jnp.float32)
-    if cdt != jnp.float32:
-        raise ValueError("g-stream tier is f32/bf16 only")
-    dt = jnp.asarray(dt, cdt)
-    inv_d2 = [1.0 / (d * d) for d in grid.spacing]
-    tg3 = jnp.stack([theta * dt * iv for iv in inv_d2])
-    sk3 = jnp.stack([dt / d for d in grid.spacing])
-
-    if emissivity is not None:
-        h_mode, hpar, hin = "rad", emissivity, None
-    elif h_field is not None:
-        h_mode, hpar, hin = "stream", 0.0, h_field
-    else:
-        h_mode, hpar, hin = "const", float(robin_h or 0.0), None
-
-    g_lo, g_hi, sw, src_pre = gstream_fields(
-        T, mask.astype(jnp.int8), tg3, sk3, hpar, t_inf, h_conv, dt,
-        h=hin, src=source, k_spec=ks, cp_spec=cs, rho=float(mat_ref.rho),
-        h_mode=h_mode, interpret=interpret)
-
-    sr = rng_seed if cdt != dtype else None
-    rr = (1.0 - theta) / theta
-    U = gstream_theta_sweep(T, g_lo[0], g_hi[0], g_lo[1], g_hi[1],
-                            g_lo[2], g_hi[2], sw[0], rr, t_inf,
-                            src_pre=src_pre,
-                            rng_seed=None if sr is None else sr + 1,
-                            interpret=interpret)
-    V = gstream_sweep_axis1(U, g_lo[1], g_hi[1], sw[1], t_inf,
-                            rng_seed=None if sr is None else sr + 2,
-                            interpret=interpret)
-    t2n = lambda x: jnp.transpose(x, (2, 0, 1))
-    W = gstream_sweep(t2n(V), t2n(g_lo[2]), t2n(g_hi[2]), t2n(sw[2]),
-                      t_inf, rng_seed=None if sr is None else sr + 3,
-                      interpret=interpret)
-    return jnp.transpose(W, (1, 2, 0))
-
-
-def adi_step_varprop_fused(T: jax.Array, mask: jax.Array, codes: tuple,
-                           grid: CartesianGrid, mat_ref: Material, *,
-                           k_table=None, cp_table=None, dt,
-                           theta: float = 0.5, t_inf=0.0,
-                           robin_h: float = 0.0,
-                           h_field: jax.Array | None = None,
-                           h_axes: tuple | None = None,
-                           emissivity=None, h_conv=0.0,
-                           source: jax.Array | None = None,
-                           rng_seed=None,
-                           interpret: bool | None = None,
-                           fuse_theta: bool | None = None,
-                           gstreams: bool | None = None) -> jax.Array:
-    """One varprop theta-scheme step through the FUSED coefficient kernels.
-
-    Same physics as ``adi_step_varprop`` restricted to the flagship BC set
-    (Robin on every exposed face — scalar ``robin_h`` or a per-cell
-    ``h_field`` e.g. from bc/radiation.radiative_h; no Neumann, no
-    Dirichlet).  The per-cell tridiagonal coefficients are rebuilt in
-    kernel registers from streamed pre-masked harmonic face conductivities
-    (``build_varprop_fields``) and 1/(rho cp(T)) instead of being
-    materialized by XLA: measured round 3 at 384^3, the materialized path
-    spends ~24-28 ms per sweep on coefficient builds against a 6.2 ms bare
-    solve (NOTES.md).  ``codes`` comes from ``build_varprop_codes(mask)``.
-
-    fuse_theta: route the explicit theta-pass + x-sweep through the
-    ring-buffer fused kernel (solvers/pallas_varprop.
-    fused_varprop_theta_sweep) — saves the R0 round trip and the stencil's
-    re-reads of fx/w (~17 B/cell and one launch).  Within ~1 ulp of the
-    unfused chain at f32 (FMA-contraction reassociation only; tested).
-    ``None`` takes ``FUSE_THETA_DEFAULT`` (module flag, flipped once the
-    kernel is chip-validated) so the engine/WAAM/bench inherit one switch.
-
-    h_axes: per-axis (A, B) effective-film streams from
-    ``build_face_h_axes`` carrying PER-FACE convective h fields (e.g. the
-    STL area-corrected fields) and radiative area scales — the sweep-ax
-    film becomes ``A + h_rad(T)*B`` (B/emissivity optional), same stream
-    count as the scalar-conv radiative path.  Mutually exclusive with
-    ``h_field``/``robin_h``; ``h_conv`` is ignored (convection lives in A).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if fuse_theta is None:
-        fuse_theta = FUSE_THETA_DEFAULT
-    if h_axes is not None and h_field is not None:
-        raise ValueError("h_axes and h_field are mutually exclusive")
-    if gstreams is None:
-        gstreams = (G_STREAMS_DEFAULT
-                    or (G_STREAMS_BF16_DEFAULT
-                        and jnp.promote_types(T.dtype, jnp.float32)
-                        != T.dtype))
-    if gstreams and theta > 0.0 and h_axes is None \
-            and jnp.promote_types(T.dtype, jnp.float32) == jnp.float32 \
-            and _table_spec(k_table, mat_ref.k) is not None \
-            and _table_spec(cp_table, mat_ref.cp) is not None:
-        return adi_step_varprop_gstreams(
-            T, mask, grid, mat_ref, k_table=k_table, cp_table=cp_table,
-            dt=dt, theta=theta, t_inf=t_inf, robin_h=robin_h,
-            h_field=h_field, emissivity=emissivity, h_conv=h_conv,
-            source=source, rng_seed=rng_seed, interpret=interpret)
-    from ..bc.radiation import radiative_h
-
-    # radiative request on the classic tier: the film is emitted by the
-    # FIELDS pass below (in-kernel — no separate radiative XLA pass/T
-    # re-read; the g-tier folds it in-register instead).  ``self_rad``
-    # marks the film as a pure pointwise function of T — the z solve then
-    # REBUILDS it in the z-leading layout instead of transposing the
-    # finished stream.
-    self_rad = (emissivity is not None and h_field is None
-                and h_axes is None)
-    from ..solvers.pallas_varprop import (fused_varprop_sweep,
-                                          fused_varprop_sweep_axis1,
-                                          fused_varprop_theta_sweep,
-                                          varprop_theta_rhs)
-
-    mask = mask.astype(bool)
-    dtype = T.dtype
-    cdt = jnp.promote_types(dtype, jnp.float32)
-    dt = jnp.asarray(dt, cdt)
-    inv_d2 = [1.0 / (d * d) for d in grid.spacing]
-
-    # one Pallas HBM pass: k(T)/cp(T) clamp-sums + harmonic faces + mask
-    # zeroing + (self-radiative) the Picard film h(T) — the film rides the
-    # same T stream instead of a separate XLA pass (XLA fallback for
-    # anisotropic/callable tables and f64)
-    if self_rad:
-        fc, w, h_field = build_varprop_fields(
-            T, mask, mat_ref, k_table, cp_table, use_kernel=True,
-            interpret=interpret,
-            rad=(float(emissivity), float(t_inf), float(h_conv)))
-    else:
-        fc, w = build_varprop_fields(T, mask, mat_ref, k_table, cp_table,
-                                     use_kernel=True, interpret=interpret)
-
-    # bf16 states: solve at f32, stochastically round every bf16 store
-    # (round-to-nearest drops sub-quantum updates and freezes slow cooling
-    # — the bf16 production hazard, NOTES.md)
-    sr = (rng_seed if jnp.promote_types(dtype, jnp.float32) != dtype
-          else None)
-    rob = (0.0 if h_field is not None or h_axes is not None
-           else float(robin_h))
-    d_ax = grid.spacing
-    hf = h_field
-
-    if h_axes is not None:
-        # per-face film streams: A (static convective fold) plus the
-        # Picard radiative film scaled by the static per-face area-ratio
-        # fold B.  h_rad is PURE radiation (h_conv=0): the convective part
-        # lives in A.  ``Tl`` is T in the sweep's layout (pointwise film,
-        # so h_rad(transpose(T)) == transpose(h_rad(T)) and XLA fuses it
-        # into the stream build).
-        def h_ax_stream(ax, Tl):
-            A, B = h_axes[ax]
-            if B is None or emissivity is None:
-                return A.astype(dtype)
-            return (A + radiative_h(Tl, emissivity, t_inf,
-                                    h_conv=0.0) * B).astype(dtype)
-    else:
-        h_ax_stream = None
-
-    # tier-2 (vp2) eligibility, shared by the y and z solves: static
-    # pointwise property specs, f32 states, no stochastic stores, and a
-    # film that is either the scalar robin_h or the self-built pointwise
-    # radiative field (re-derivable from T in registers)
-    vp2_cp = _table_spec(cp_table, mat_ref.cp)
-    # exactly-f32 states only (itemsize guard, as the cylindrical vp2
-    # gate): the vp2 kernels' geometry columns/dtor are f32 — routing f64
-    # through them would silently degrade the x64 parity tier
-    vp2_ok = (sr is None
-              and jnp.dtype(dtype).itemsize == 4
-              and jnp.promote_types(dtype, jnp.float32) == dtype
-              and vp2_cp is not None and (hf is None or self_rad)
-              and h_axes is None)
-    vp2_h = float(h_conv) if self_rad else float(robin_h)
-    vp2_eps = float(emissivity) if self_rad else 0.0
-
-    def sweep(rhs, ax, fc_t, w_t, h_t, kernel=fused_varprop_sweep):
-        return kernel(
-            rhs, codes[ax], fc_t, w_t,
-            float(theta) * dt * inv_d2[ax], dt / d_ax[ax], t_inf,
-            h=h_t, rob_c=rob,
-            rng_seed=None if sr is None else sr + (ax + 1),
-            interpret=interpret)
-
-    hx = hf if h_ax_stream is None else h_ax_stream(0, T)
-    hy = hf if h_ax_stream is None else h_ax_stream(1, T)
-    if fuse_theta:
-        # ring kernel: theta-pass + x-sweep in one HBM pass, no R0 store
-        U = fused_varprop_theta_sweep(
-            T, codes[0], fc[0], fc[1], fc[2], w,
-            (1.0 - theta) * dt, [float(v) for v in inv_d2],
-            float(theta) * dt * inv_d2[0], dt / d_ax[0], t_inf,
-            h=hx, rob_c=rob, src=source, dt=dt,
-            rng_seed=None if sr is None else sr + 1,
-            interpret=interpret)
-    else:
-        # explicit theta-pass: plane-carry stencil kernel streaming the
-        # face fields (one HBM pass; no in-kernel harmonic divides)
-        R0 = varprop_theta_rhs(
-            T, fc[0], fc[1], fc[2], w, mask.astype(jnp.int8),
-            (1.0 - theta) * dt, [float(v) for v in inv_d2],
-            src=source, dt=dt,
-            rng_seed=None if sr is None else sr,
-            interpret=interpret).astype(dtype)
-        U = sweep(R0, 0, fc[0], w, hx)
-    # y: the axis-1 kernel sweeps in the NATURAL layout — no transposes
-    ky_tab = k_table[1] if isinstance(k_table, (tuple, list)) else k_table
-    ky_spec = _table_spec(ky_tab, mat_ref.k)
-    if VP2_Y_DEFAULT and vp2_ok and ky_spec is not None:
-        # tier-2 y solve (module flag note): fc_y/w/films derived in
-        # registers from T + code — the fc/w/h stream reads are gone
-        from ..solvers.pallas_vp2 import build_vp2_code, fused_vp2_sweep_axis1
-
-        code_y2 = build_vp2_code(mask, 1, edge_exposed=True)
-        V = fused_vp2_sweep_axis1(
-            U, T, code_y2, (dt / mat_ref.rho).astype(jnp.float32),
-            k_spec=ky_spec, cp_spec=vp2_cp,
-            glo=float(theta) * inv_d2[1], ghi=float(theta) * inv_d2[1],
-            gs_lo=1.0 / d_ax[1], gs_hi=1.0 / d_ax[1], h_lo=vp2_h,
-            h_hi=vp2_h, tinf_void=float(t_inf), emissivity=vp2_eps,
-            interpret=interpret)
-    else:
-        V = sweep(U, 1, fc[1], w, hy, kernel=fused_varprop_sweep_axis1)
-    # z: (x,y,z) -> (z,x,y).  Session-H rule (NOTES.md): never transpose a
-    # DERIVED stream — transpose its SOURCE and rebuild the stream in the
-    # target layout.  Only the chained rhs moves in (and the solution
-    # out); fc_z, w and the self-built radiative film are re-derived
-    # directly in the z-leading layout from T/mask's transposes —
-    # elementwise VPU work XLA fuses into the transposes, replacing a full
-    # HBM transpose pair per finished stream (the cylindrical family
-    # measured 26.3 -> 14.9 ms at (64,512,1024) for the same fix, commit
-    # 8277b4a).  Identical elementwise computation on permuted data,
-    # verified to solver round-off by the parity tests.
-    t2n = lambda x: jnp.transpose(x, (2, 0, 1))
-    kz_tab = k_table[2] if isinstance(k_table, (tuple, list)) else k_table
-    z_rebuild = (_pointwise_tab(kz_tab) and _pointwise_tab(cp_table)
-                 and (hf is None or self_rad))
-    kz_spec = _table_spec(kz_tab, mat_ref.k)
-    if VP2_Z_DEFAULT and vp2_ok and kz_spec is not None:
-        # tier-2 z solve (module flag note): fc_z/w/films derived in
-        # registers from T + code — no Tz/mz transposes, no z-leading
-        # stream rebuild passes.  Mapping onto the vp2 algebra: glo = ghi
-        # = theta/dz^2 and gs = 1/dz STATIC columns; dt rides in
-        # dw = (dt/rho)/cp(T), so dw*glo*fc = tg*w*fc and dw*gs*h =
-        # sk*w*h — identical row math to _varprop_kernel; exposure code
-        # bits with edge_exposed reproduce the (2-low-high)*inm film
-        # count (sweep_code contract).
-        from ..solvers.pallas_vp2 import build_vp2_code, fused_vp2_sweep
-
-        code_z2 = jnp.moveaxis(
-            build_vp2_code(mask, 2, edge_exposed=True), 2, 0)
-        nz = T.shape[2]
-        glo = jnp.full((nz,), float(theta) * inv_d2[2], jnp.float32)
-        gs = jnp.full((nz,), 1.0 / d_ax[2], jnp.float32)
-        return fused_vp2_sweep(
-            V, T, code_z2, glo, glo, gs, gs,
-            (dt / mat_ref.rho).astype(jnp.float32),
-            k_spec=kz_spec, cp_spec=vp2_cp, h_lo=vp2_h, h_hi=vp2_h,
-            tinf_void=float(t_inf), emissivity=vp2_eps,
-            nat_rhs_out=True, interpret=interpret)
-    if z_rebuild:
-        Tz = t2n(T)
-        mz = t2n(mask)
-        kz = _ev_tab(kz_tab, mat_ref.k, Tz, dtype)
-        fcz = _face_g(kz, 0, -1, mz).astype(dtype)
-        wz = (1.0 / (mat_ref.rho
-                     * _ev_tab(cp_table, mat_ref.cp, Tz, dtype))
-              ).astype(dtype)
-        hz = (radiative_h(Tz, emissivity, t_inf, h_conv=h_conv)
-              if self_rad else None)
-    else:
-        # spatial-closure tables / caller-supplied h fields: the streams
-        # cannot be re-derived from Tz — fall back to transposing them
-        fcz, wz = t2n(fc[2]), t2n(w)
-        hz = None if hf is None else t2n(hf)
-    if h_ax_stream is not None:
-        # A_z/B_z are mask-static and stored z-led; only the pointwise
-        # radiative factor needs T in the z layout (fuses into the stream)
-        hz = h_ax_stream(2, Tz if z_rebuild else t2n(T))
-    if (jnp.promote_types(dtype, jnp.float32) == dtype
-            or Z_NAT_VP_BF16_DEFAULT):
-        # NATURAL rhs/out z solve: the kernel relays chunks in VMEM, so
-        # the chained rhs and the solution never pay a step-level
-        # transpose pair (chip-gated pattern, scripts/znat_chip.py).
-        # Sub-f32 states ride it when Z_NAT_VP_BF16_DEFAULT is on
-        # (module flag note): f32 in-VMEM relayout, stochastic-rounded
-        # downcast in the output staging.
-        return fused_varprop_sweep(
-            V, codes[2], fcz, wz, float(theta) * dt * inv_d2[2],
-            dt / d_ax[2], t_inf, h=hz, rob_c=rob,
-            rng_seed=None if sr is None else sr + 3,
-            interpret=interpret, nat_rhs_out=True)
-    W = sweep(t2n(V), 2, fcz, wz, hz)
-    return jnp.transpose(W, (1, 2, 0))

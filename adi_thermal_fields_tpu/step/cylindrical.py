@@ -1,4 +1,4 @@
-"""Cylindrical (r, phi, z) ADI time step with periodic phi — TPU-native.
+"""Cylindrical (r, phi, z) ADI time step with periodic phi.
 
 Reproduces the reference cylindrical core (adi3d_cyl_phi_v3.py): finite-volume
 radial operator with Robin at the outer face by ghost-cell elimination,
@@ -23,8 +23,9 @@ Extensions over the reference (documented deviations):
 
 Batched tridiagonal systems: the r sweep solves (nphi*nz) systems of length
 nr and the z sweep (nr*nphi) systems of length nz, all simultaneously via the
-lax.scan Thomas (solvers/thomas.py) with 1-D coefficient vectors broadcast
-across the batch — no (M, n) materialization as in the NumPy reference.
+batched Thomas solve (solvers/thomas.py) with 1-D coefficient vectors
+broadcast across the batch — no (M, n) materialization as in the NumPy
+reference.
 """
 from __future__ import annotations
 
@@ -39,14 +40,7 @@ from ..solvers.spectral import phi_solve_spectral
 from ..solvers.thomas import thomas
 
 __all__ = ["RobinBC", "ZFaceBC", "adi_step", "adi_step_masked",
-           "padded_cyl_shape", "pad_cyl_domain",
            "apply_Lr", "apply_Lphi", "apply_Lz"]
-
-# Natural-layout z solve for the const-coefficient BE step (kills the z
-# moveaxis pair, ~16 B/cell): chip-gated 2026-08-19 — bitwise parity and
-# 2.02x on the z leg at (128,512,512) (old t2+kernel+t2 1.46 ms vs nat
-# 0.72 ms; /tmp gate run, pallas_sweeps._const_sweep_kernel_nat).
-Z_NAT_CONST_DEFAULT = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,7 +209,8 @@ def z_operator(T: jax.Array, grid: CylindricalGrid, mat: Material,
 
 def _r_sweep(rhs: jax.Array, grid: CylindricalGrid, mat: Material, theta_dt,
              robin_outer: RobinBC, robin_inner: RobinBC | None,
-             implementation: str = "xla") -> jax.Array:
+             implementation: str = "auto",
+             interpret: bool = False) -> jax.Array:
     """Solve (I - theta*dt*alpha*L_r) x = rhs along axis 0.
 
     Interior/axis/outer-Robin coefficients match reference ``build_coeff_r``
@@ -227,101 +222,42 @@ def _r_sweep(rhs: jax.Array, grid: CylindricalGrid, mat: Material, theta_dt,
     # them at trace time so a traced dt never recompiles or mutates arrays.
     ge_a, ge_c, ge_rob, rob_rhs = _r_geometry(grid, mat, robin_outer,
                                               robin_inner)
-    if rhs.shape[0] > grid.nr:
-        # pad-to-tile state: appended radii are identity rows (a=c=0, b=1,
-        # no Robin source) — decoupled from the physical outer row, whose
-        # upward coupling is already zero
-        pad = rhs.shape[0] - grid.nr
-        ge_a, ge_c, ge_rob, rob_rhs = (np.pad(v, (0, pad)) for v in
-                                       (ge_a, ge_c, ge_rob, rob_rhs))
     fac = jnp.asarray(theta_dt * mat.alpha, dtype)
     a_vec = -fac * jnp.asarray(ge_a, dtype)
     c_vec = -fac * jnp.asarray(ge_c, dtype)
     b_vec = 1.0 + fac * jnp.asarray(ge_a + ge_c + ge_rob, dtype)
     radd = fac * jnp.asarray(rob_rhs, dtype)
-    if implementation == "pallas":
-        from ..solvers.pallas_sweeps import fused_sweep_const
-
-        interp = jax.default_backend() == "cpu"
-        return fused_sweep_const(rhs, a_vec, b_vec, c_vec, radd,
-                                 interpret=interp)
     return thomas(a_vec[:, None, None], b_vec[:, None, None],
-                  c_vec[:, None, None], rhs + radd[:, None, None])
+                  c_vec[:, None, None], rhs + radd[:, None, None],
+                  implementation=implementation, interpret=interpret)
 
 
 def _z_sweep(rhs: jax.Array, grid: CylindricalGrid, mat: Material, theta_dt,
-             zbc: ZFaceBC, implementation: str = "xla") -> jax.Array:
+             zbc: ZFaceBC, implementation: str = "auto",
+             interpret: bool = False) -> jax.Array:
     """Solve (I - theta*dt*alpha*L_z) x = rhs along axis 2 with end BCs.
     Coefficients match reference ``build_coeff_z`` (adi3d_cyl_phi_v3.py:255-298)."""
     dtype = rhs.dtype
     # Static (numpy) unit-fac geometry; traced fac scales it at trace time.
     ge_a, ge_c, ge_b, rob_rhs, dir_rows = _z_geometry(grid, mat, zbc)
-    if rhs.shape[2] > grid.nz:
-        # pad-to-tile state: appended z rows are identities (see _r_sweep);
-        # the Dirichlet/Robin end rows keep their absolute indices
-        pad = rhs.shape[2] - grid.nz
-        ge_a, ge_c, ge_b, rob_rhs = (np.pad(v, (0, pad)) for v in
-                                     (ge_a, ge_c, ge_b, rob_rhs))
-
     fac = jnp.asarray(theta_dt * mat.alpha / (grid.dz * grid.dz), dtype)
     a_vec = -fac * jnp.asarray(ge_a, dtype)
     c_vec = -fac * jnp.asarray(ge_c, dtype)
     b_vec = 1.0 + fac * jnp.asarray(ge_b, dtype)
     radd = fac * jnp.asarray(rob_rhs, dtype)
-    if (implementation == "pallas" and Z_NAT_CONST_DEFAULT
-            and jnp.promote_types(dtype, jnp.float32) == dtype):
-        # NATURAL rhs/out: the kernel relays the block in VMEM — the z
-        # solve's moveaxis pair (16 B/cell of pure layout traffic) is gone
-        # (chip-gated relayout pattern, scripts/znat_chip.py)
-        from ..solvers.pallas_sweeps import fused_sweep_const
-
-        dn = rhs
-        for idx, t_dir in dir_rows:
-            dn = dn.at[:, :, idx].set(jnp.asarray(t_dir, dtype))
-        interp = jax.default_backend() == "cpu"
-        return fused_sweep_const(dn, a_vec, b_vec, c_vec, radd,
-                                 interpret=interp, nat_rhs_out=True)
-
     d = jnp.moveaxis(rhs, 2, 0)  # (nz, nr, nphi)
     for idx, t_dir in dir_rows:
         d = d.at[idx].set(jnp.asarray(t_dir, dtype))
 
-    if implementation == "pallas":
-        from ..solvers.pallas_sweeps import fused_sweep_const
-
-        interp = jax.default_backend() == "cpu"
-        x = fused_sweep_const(d, a_vec, b_vec, c_vec, radd,
-                              interpret=interp)
-    else:
-        x = thomas(a_vec[:, None, None], b_vec[:, None, None],
-                   c_vec[:, None, None], d + radd[:, None, None])
+    x = thomas(a_vec[:, None, None], b_vec[:, None, None],
+               c_vec[:, None, None], d + radd[:, None, None],
+               implementation=implementation, interpret=interpret)
     return jnp.moveaxis(x, 0, 2)
 
 
-def _phi_solve(X, grid: CylindricalGrid, mat: Material, theta, dt,
-               implementation: str):
-    """Periodic phi implicit solve.
-
-    On CPU and CUDA/ROCm: spectral (FFT), matching the reference's
-    phi_solve_spectral (host FFT and cuFFT are accurate).
-    On TPU: ALWAYS the constant-coefficient cyclic Pallas kernel — measured
-    on v5e at (128, 512, 512) f32, the XLA FFT path is both ~7x slower AND
-    catastrophically inaccurate (max error ~150 K vs an f64 host reference;
-    the TPU lowers DFTs to limited-precision matmuls), while the cyclic
-    solve errs by ~1e-3 K.  The two are algebraically identical inversions
-    of (I - fac*L_phi).
-    """
-    on_tpu = jax.default_backend() == "tpu"
-    if (implementation == "pallas" or on_tpu) and grid.nphi > 1:
-        from ..solvers.pallas_sweeps import fused_cyclic_phi
-        from ..solvers.spectral import phi_eigenvalue_factors
-
-        fac_r = (theta * mat.alpha * dt
-                 * phi_eigenvalue_factors(grid, dtype=X.dtype))
-        if X.shape[0] > grid.nr:   # pad-to-tile: fac 0 -> identity systems
-            fac_r = jnp.pad(fac_r, (0, X.shape[0] - grid.nr))
-        fac = jnp.broadcast_to(fac_r[:, None], (X.shape[0], X.shape[2]))
-        return fused_cyclic_phi(X, fac, interpret=not on_tpu)
+def _phi_solve(X, grid: CylindricalGrid, mat: Material, theta, dt):
+    """Periodic phi implicit solve: spectral (FFT), matching the reference's
+    phi_solve_spectral (numpy FFT on the CPU, cuFFT on the GPU)."""
     return phi_solve_spectral(X, grid, mat, theta, dt)
 
 
@@ -329,32 +265,13 @@ def _phi_solve(X, grid: CylindricalGrid, mat: Material, theta, dt,
 # Time steps
 # --------------------------------------------------------------------------
 
-def padded_cyl_shape(shape: tuple) -> tuple:
-    """Tile-friendly cylindrical domain: nr to a multiple of 8 (phi-solve
-    sublane batches) and nz to a multiple of 128 (r-sweep lane batches).
-    nphi stays EXACT -- it is the periodic solve's line length.  Padded
-    radii/z-rows are identity rows in every sweep (physically inert)."""
-    nr, nphi, nz = shape
-    ru = lambda v, m: -(-v // m) * m
-    return (ru(nr, 8), nphi, ru(nz, 128))
-
-
-def pad_cyl_domain(arr: jax.Array, value=0) -> jax.Array:
-    """Pad an (r, phi, z) field to ``padded_cyl_shape`` with ``value``."""
-    ps = padded_cyl_shape(arr.shape)
-    if tuple(arr.shape) == ps:
-        return arr
-    return jnp.pad(arr, [(0, p - s) for p, s in zip(ps, arr.shape)],
-                   constant_values=value)
-
-
 def adi_step(T: jax.Array, grid: CylindricalGrid, mat: Material, *, dt,
              robin_outer: RobinBC, zbc: ZFaceBC,
              robin_inner: RobinBC | None = None,
              source: jax.Array | None = None,
              scheme: str = "be", theta: float = 0.5,
-             implementation: str = "xla",
-             pad_to_tile: bool = False) -> jax.Array:
+             implementation: str = "auto",
+             interpret: bool = False) -> jax.Array:
     """One cylindrical ADI step (reference ``adi_step``,
     adi3d_cyl_phi_v3.py:332-373).
 
@@ -362,34 +279,19 @@ def adi_step(T: jax.Array, grid: CylindricalGrid, mat: Material, *, dt,
     solves with the volumetric source added up front (:338-350).
     scheme="douglas": textbook Douglas–Gunn with stabilizing correction (the
     reference's variant is dimensionally inconsistent; see module docstring).
+
+    implementation / interpret: the r and z sweeps' tridiagonal solver tier
+    (solvers/thomas.py); the phi solve is spectral on every tier.
     """
+    kw = dict(implementation=implementation, interpret=interpret)
     if scheme == "be":
-        crop = None
-        if pad_to_tile:
-            if implementation != "pallas":
-                raise ValueError("pad_to_tile requires implementation="
-                                 "'pallas' (the cyclic-phi kernel; the "
-                                 "spectral path assumes exact grid shapes)")
-            if tuple(T.shape) != padded_cyl_shape(T.shape):
-                crop = T.shape
-                T = pad_cyl_domain(T)
-                if source is not None:
-                    source = pad_cyl_domain(source)
         R0 = T if source is None else T + dt * source / (mat.rho * mat.cp)
-        X = _r_sweep(R0, grid, mat, dt, robin_outer, robin_inner,
-                     implementation=implementation)
-        X = _phi_solve(X, grid, mat, 1.0, dt, implementation)
-        out = _z_sweep(X, grid, mat, dt, zbc,
-                       implementation=implementation)
-        if crop is not None:
-            out = out[:crop[0], :, :crop[2]]
-        return out
+        X = _r_sweep(R0, grid, mat, dt, robin_outer, robin_inner, **kw)
+        X = _phi_solve(X, grid, mat, 1.0, dt)
+        return _z_sweep(X, grid, mat, dt, zbc, **kw)
 
     if scheme != "douglas":
         raise ValueError(f"unknown scheme: {scheme!r}")
-    if pad_to_tile:
-        raise ValueError("pad_to_tile is only supported for scheme='be' "
-                         "(the douglas operators assume exact grid shapes)")
 
     th = theta if 0.0 < theta <= 1.0 else 0.5
     # BC-consistent affine operators [K/s]: the SAME discrete operators as
@@ -402,10 +304,9 @@ def adi_step(T: jax.Array, grid: CylindricalGrid, mat: Material, *, dt,
     if source is not None:
         Y0 = Y0 + dt * source / (mat.rho * mat.cp)
     Y1 = _r_sweep(Y0 - th * dt * Lr, grid, mat, th * dt,
-                  robin_outer, robin_inner, implementation=implementation)
-    Y2 = _phi_solve(Y1 - th * dt * Lp, grid, mat, th, dt, implementation)
-    Y3 = _z_sweep(Y2 - th * dt * Lz, grid, mat, th * dt, zbc,
-                  implementation=implementation)
+                  robin_outer, robin_inner, **kw)
+    Y2 = _phi_solve(Y1 - th * dt * Lp, grid, mat, th, dt)
+    Y3 = _z_sweep(Y2 - th * dt * Lz, grid, mat, th * dt, zbc, **kw)
     return Y3
 
 
@@ -414,7 +315,9 @@ def adi_step_masked(T: jax.Array, grid: CylindricalGrid, mat: Material, *, dt,
                     robin_inner: RobinBC | None = None,
                     robin_void: RobinBC | None = None,
                     source: jax.Array | None = None,
-                    scheme: str = "be", theta: float = 0.5) -> jax.Array:
+                    scheme: str = "be", theta: float = 0.5,
+                    implementation: str = "auto",
+                    interpret: bool = False) -> jax.Array:
     """Element-birth wrapper: clamp void cells to ambient before and after the
     unmasked step; inactive innermost-radius cells track the inner ambient.
     Matches reference ``adi_step_masked``
@@ -428,7 +331,8 @@ def adi_step_masked(T: jax.Array, grid: CylindricalGrid, mat: Material, *, dt,
     T_work = jnp.where(active, T, ambient_void)
     T1 = adi_step(T_work, grid, mat, dt=dt, robin_outer=robin_outer, zbc=zbc,
                   robin_inner=robin_inner, source=source, scheme=scheme,
-                  theta=theta)
+                  theta=theta, implementation=implementation,
+                  interpret=interpret)
     T1 = jnp.where(active, T1, ambient_void)
     # Innermost radial ring: inactive cells tied to the inner ambient
     # (quick_spiral_deposition_gif_v5.py:66-69).

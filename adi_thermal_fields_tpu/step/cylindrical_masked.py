@@ -50,7 +50,7 @@ class MaskedRobinPlan(NamedTuple):
     ``(cup_lo, cup_hi, geo_lo, geo_hi, sink, sink_rhs)`` — bool coupling
     masks (void/pin folded in), BROADCAST geometry factors (columns/scalars,
     not materialized fields: storing folded f32 coupling fields measured
-    slower than recomputing from 1-byte masks — NOTES.md), and the Robin
+    slower than recomputing from 1-byte masks), and the Robin
     sink fields, all per unit ``fac = dt*alpha``."""
 
     active: jax.Array
@@ -60,10 +60,6 @@ class MaskedRobinPlan(NamedTuple):
     r: tuple
     phi: tuple | None
     z: tuple
-    # compressed per-sweep inputs in the SOLVE (axis-first) layout for the
-    # fused masked kernels: (code int8, sink, geo...) per axis; None entries
-    # fall back to the field-coefficient path
-    compressed: tuple | None = None
 
 
 def _shift(m: jax.Array, axis: int, direction: int, fill=False) -> jax.Array:
@@ -87,7 +83,7 @@ def adi_step_masked_robin(T: jax.Array, grid: CylindricalGrid, mat: Material, *,
                           source: jax.Array | None = None,
                           constrain=None,
                           implementation: str = "auto",
-                          pad_to_tile: bool = False) -> jax.Array:
+                          interpret: bool = False) -> jax.Array:
     """One BE step of the masked cylindrical problem.
 
     Parameters
@@ -106,31 +102,17 @@ def adi_step_masked_robin(T: jax.Array, grid: CylindricalGrid, mat: Material, *,
         with stage in {"r", "phi", "z"} — the multi-chip layer
         (dist/cylindrical.py) passes sharding constraints here so every
         sweep's solve axis stays chip-local.
-    implementation : "pallas" (fused field-coefficient kernels,
-        solvers/pallas_fields.py), "xla" (scan solvers), or "auto"
-        (pallas on a single TPU; xla elsewhere and under ``constrain``).
-    pad_to_tile : pad nr/nz to tile-friendly dims with void cells
-        (bitwise-inert; see step/cylindrical.padded_cyl_shape).  Padded in,
-        padded out is the zero-copy steady state.
+    implementation / interpret : the tridiagonal solver tier
+        (solvers/thomas.py).
     """
-    crop = None
-    if pad_to_tile:
-        from .cylindrical import pad_cyl_domain, padded_cyl_shape
-
-        if tuple(T.shape) != padded_cyl_shape(T.shape):
-            crop = T.shape
-            T = pad_cyl_domain(T)
-            active = pad_cyl_domain(active, False)
-            if source is not None:
-                source = pad_cyl_domain(source)
     plan = build_masked_robin_plan(grid, mat, active, robin_outer=robin_outer,
                                    zbc=zbc, robin_inner=robin_inner,
                                    h_void=h_void, T_inf_void=T_inf_void,
                                    h_front=h_front, dtype=T.dtype)
-    out = masked_robin_solve(T, plan, grid, mat, dt=dt, source=source,
-                             constrain=constrain,
-                             implementation=implementation)
-    return out if crop is None else out[:crop[0], :, :crop[2]]
+    return masked_robin_solve(T, plan, grid, mat, dt=dt, source=source,
+                              constrain=constrain,
+                              implementation=implementation,
+                              interpret=interpret)
 
 
 def build_masked_robin_plan(grid: CylindricalGrid, mat: Material,
@@ -143,14 +125,7 @@ def build_masked_robin_plan(grid: CylindricalGrid, mat: Material,
     the activation mask — rebuild on birth events, not per sub-step)."""
     dtype = dtype or jnp.result_type(float)
     active = active.astype(bool)
-    # the mask may arrive PADDED to tile-friendly dims (pad_to_tile): padded
-    # cells are void, so every sink/coupling below is zero there and the
-    # solver's void-identity rows make the padding bitwise-inert.  Only nphi
-    # must stay exact (it is the periodic line length).
     nr, nphi, nz = active.shape
-    if nphi != grid.nphi:
-        raise ValueError(f"active nphi {nphi} != grid nphi {grid.nphi} "
-                         "(phi cannot be padded — periodic line)")
     dr, dz, dphi = grid.dr, grid.dz, grid.dphi
     if h_front is None:
         h_front = h_void
@@ -158,9 +133,6 @@ def build_masked_robin_plan(grid: CylindricalGrid, mat: Material,
     r = np.maximum(np.asarray(grid.r, np.float64), 1e-15)
     r_imh = np.maximum(np.asarray(grid.r_imh, np.float64), 0.0)
     r_iph = np.asarray(grid.r_iph, np.float64)
-    if nr > grid.nr:   # padded radii: any positive geometry (cells are void)
-        r, r_imh, r_iph = (np.pad(v, (0, nr - grid.nr), mode="edge")
-                           for v in (r, r_imh, r_iph))
     inv_k = 1.0 / mat.k
 
     # Coupling presence per face (both cells active; domain edges absent).
@@ -186,7 +158,7 @@ def build_masked_robin_plan(grid: CylindricalGrid, mat: Material,
 
     idx_r0 = jnp.arange(nr)[:, None, None]
     is_r_first = idx_r0 == 0
-    is_r_last = idx_r0 == grid.nr - 1      # PHYSICAL domain faces, not pad
+    is_r_last = idx_r0 == grid.nr - 1
     idx_z = jnp.arange(nz)[None, None, :]
     is_z_first = idx_z == 0
     is_z_last = idx_z == grid.nz - 1
@@ -262,62 +234,18 @@ def build_masked_robin_plan(grid: CylindricalGrid, mat: Material,
     z_sw = pack(coupled(2, -1), coupled(2, +1), geo_z, geo_z,
                 sink_zm + sink_zp, rhs_zm + rhs_zp)
 
-    def code_of(sw, axis, natural=False):
-        """int8 sweep code: bits 1/2 = couplings (void/pin severed), bit 4 =
-        pinned row, bit 8 = active — bits 4/8 drive the kernels' IN-KERNEL
-        prefold (d = pin ? srhs : active ? rhs + fac*srhs : ambient), which
-        replaced the separate XLA d-materialization pass (~14 B/cell/sweep,
-        VERDICT r2 #2)."""
-        cup_lo, cup_hi = sw[0], sw[1]
-        code = (cup_lo.astype(jnp.int8) | cup_hi.astype(jnp.int8) * np.int8(2)
-                | pin.astype(jnp.int8) * np.int8(4)
-                | active.astype(jnp.int8) * np.int8(8))
-        return code if natural else jnp.moveaxis(code, axis, 0)
-
-    def sink_of(sw, axis, natural=False):
-        return sw[4] if natural else jnp.moveaxis(sw[4], axis, 0)
-
-    def srhs_of(sw, axis, natural=False):
-        # sink*T_inf on live rows; the PIN VALUE on pinned rows (the kernel
-        # streams one field for both)
-        v = jnp.where(pin, pin_val, sw[5])
-        return v if natural else jnp.moveaxis(v, axis, 0)
-
-    # compressed kernel inputs (13 B/cell solve + 4 B srhs, prefold fused;
-    # the phi entry stays in the NATURAL layout for the axis-1 cyclic
-    # kernel — no per-step transpose pair)
-    geo_r_lo_v = jnp.asarray(r_imh / (r * dr * dr), dtype)
-    geo_r_hi_v = jnp.asarray(r_iph / (r * dr * dr), dtype)
-    comp_r = (code_of(r_sw, 0), sink_of(r_sw, 0), srhs_of(r_sw, 0),
-              geo_r_lo_v, geo_r_hi_v)
-    comp_phi = None
-    if phi_sw is not None:
-        # phi geometry varies over the (r, z) batch, constant along the line;
-        # arrays stay in the NATURAL (r, phi, z) layout (axis-1 kernel)
-        geo_phi_b = jnp.broadcast_to(phi_sw[2][:, 0, :], (nr, nz))
-        comp_phi = (code_of(phi_sw, 1, natural=True),
-                    sink_of(phi_sw, 1, natural=True),
-                    srhs_of(phi_sw, 1, natural=True), geo_phi_b)
-    geo_z_v = jnp.full((nz,), 1.0 / (dz * dz), dtype)
-    comp_z = (code_of(z_sw, 2), sink_of(z_sw, 2), srhs_of(z_sw, 2),
-              geo_z_v, geo_z_v)
-
     return MaskedRobinPlan(active, pin, pin_val,
-                           jnp.asarray(T_inf_void, dtype), r_sw, phi_sw, z_sw,
-                           (comp_r, comp_phi, comp_z))
+                           jnp.asarray(T_inf_void, dtype), r_sw, phi_sw, z_sw)
 
 
 def masked_robin_solve(T: jax.Array, plan: MaskedRobinPlan,
                        grid: CylindricalGrid, mat: Material, *, dt,
                        source: jax.Array | None = None, constrain=None,
-                       implementation: str = "auto") -> jax.Array:
+                       implementation: str = "auto",
+                       interpret: bool = False) -> jax.Array:
     """One BE step from a prebuilt plan (per-step work: scale the plan's
     per-unit-fac fields by ``fac = dt*alpha`` and solve the three sweeps)."""
-    if implementation == "auto":
-        implementation = ("pallas" if (jax.default_backend() == "tpu"
-                                       and constrain is None) else "xla")
-    use_pallas = implementation == "pallas"
-    interp = jax.default_backend() != "tpu"
+    kw = dict(implementation=implementation, interpret=interpret)
     if constrain is None:
         constrain = lambda x, stage: x
     dtype = T.dtype
@@ -325,39 +253,6 @@ def masked_robin_solve(T: jax.Array, plan: MaskedRobinPlan,
     pin = plan.pin
     ambient = plan.ambient
     fac = jnp.asarray(dt * mat.alpha, dtype)  # BE: theta = 1
-
-    if use_pallas and plan.compressed is not None:
-        # compressed kernels with the IN-KERNEL prefold: the raw field
-        # streams straight into each sweep (code bits 4/8 select
-        # pin-value / live / ambient rows), the phi solve runs as an
-        # AXIS-1 cyclic kernel in the natural layout, and only the z sweep
-        # pays a transpose pair.  Traffic model ~17 B/cell/sweep + 8 B for
-        # the z layout pair vs the old ~40 (see bench.py --case masked).
-        from ..solvers.pallas_fields import (fused_masked_cyclic_axis1,
-                                             fused_masked_sweep)
-
-        comp_r, comp_phi, comp_z = plan.compressed
-        R0 = T if source is None else T + dt * source / (mat.rho * mat.cp)
-        code, sink0, srhs, glo, ghi = comp_r
-        X = fused_masked_sweep(R0, code, sink0, glo, ghi, fac, srhs,
-                               ambient, interpret=interp)
-        if comp_phi is not None:
-            code, sink0, srhs, geo = comp_phi
-            X = fused_masked_cyclic_axis1(X, code, sink0, srhs, geo, fac,
-                                          ambient, interpret=interp)
-        code, sink0, srhs, glo, ghi = comp_z
-        if jnp.promote_types(dtype, jnp.float32) == dtype:
-            # NATURAL rhs/out z sweep: in-kernel chunk relayout replaces
-            # the step-level transpose pair (chip-gated 1.81x pattern,
-            # scripts/znat_chip.py) — the last layout traffic in the
-            # masked step is gone (~51 B/cell model, was 59)
-            return fused_masked_sweep(X, code, sink0, glo, ghi, fac, srhs,
-                                      ambient, interpret=interp,
-                                      nat_rhs_out=True)
-        Xz = fused_masked_sweep(jnp.transpose(X, (2, 0, 1)), code, sink0,
-                                glo, ghi, fac, srhs, ambient,
-                                interpret=interp)
-        return jnp.transpose(Xz, (1, 2, 0))
 
     def sweep(rhs, axis, sw, periodic=False):
         cup_lo, cup_hi, geo_lo, geo_hi, sink, sink_rhs = sw
@@ -369,16 +264,8 @@ def masked_robin_solve(T: jax.Array, plan: MaskedRobinPlan,
         a = jnp.where(cup_lo, -fac * geo_lo, 0.0).astype(dtype)
         c = jnp.where(cup_hi, -fac * geo_hi, 0.0).astype(dtype)
         b = 1.0 - (a + c) + fac * sink     # void/pinned rows: exactly 1
-        if use_pallas:
-            from ..solvers.pallas_fields import (fused_cyclic_fields,
-                                                 fused_tridiag_fields)
-
-            solve = fused_cyclic_fields if periodic else fused_tridiag_fields
-            x = solve(mv(a), mv(b), mv(c), mv(d), interpret=interp)
-        elif periodic:
-            x = cyclic_thomas(mv(a), mv(b), mv(c), mv(d))
-        else:
-            x = thomas(mv(a), mv(b), mv(c), mv(d))
+        solve = cyclic_thomas if periodic else thomas
+        x = solve(mv(a), mv(b), mv(c), mv(d), **kw)
         return jnp.moveaxis(x, 0, axis)
 
     R0 = T if source is None else T + dt * source / (mat.rho * mat.cp)

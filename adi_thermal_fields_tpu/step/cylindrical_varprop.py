@@ -34,18 +34,9 @@ boundaries), and Robin edge rows are gated to active cells.  The
 reference-semantics clamp wrapper (quick_spiral_deposition_gif_v5.py:31-70)
 is ``adi_step_cyl_varprop_masked``.
 
-Solvers, by ``implementation``:
-
-  * "pallas" (TPU default): the COMPRESSED variable-property kernels
-    (solvers/pallas_vpfields.py) — tridiagonal coefficients rebuilt in
-    kernel registers from the physical streams (rhs, face-k, dt/(rho cp),
-    Robin sink/srhs), ~24-28 B/cell/sweep, r and phi in the natural
-    layout (the phi solve needs no transposes);
-  * "pallas_fields": the first tier — a/b/c/d materialized by XLA and
-    solved by the generic field kernels (solvers/pallas_fields.py);
-    kept for A/B and as fallback;
-  * "xla": lax.scan Thomas/cyclic-Thomas (CPU/GPU, autodiff, sharding
-    via ``constrain``).
+Each sweep's a/b/c/d are built by XLA and solved by the batched Thomas
+(cyclic for phi, solvers/thomas.py); ``implementation`` picks the solver
+tier ("auto": the Triton kernel on a GPU, the scan on the CPU).
 """
 from __future__ import annotations
 
@@ -60,17 +51,7 @@ from .cartesian import shift_in
 from .cartesian_varprop import _face_g
 from .cylindrical import RobinBC, ZFaceBC
 
-__all__ = ["adi_step_cyl_varprop", "adi_step_cyl_varprop_masked",
-           "build_cyl_vp2_plan"]
-
-# Tier-2 fully-fused kernels (solvers/pallas_vp2.py): k(T)/cp(T)/films
-# derived IN REGISTERS from T + a 1-byte face code — per sweep read
-# rhs+T+code, write x (~13 B/cell; 9 for the first sweep) instead of the
-# five prebuilt streams + their XLA build passes (~130 B/cell/step -> ~45).
-# Chip gate (scripts/vp2_chip.py, v5e 2026-08-19): parity BITWISE vs the
-# vp-fields tier at (64,128,256); (64,512,1024) bench config 13.48 ->
-# 7.93 ms/step = 4.23 Gcell/s (1.70x, slope median-of-3, same session).
-VP2_DEFAULT = True
+__all__ = ["adi_step_cyl_varprop", "adi_step_cyl_varprop_masked"]
 
 
 def _ev(tab, const, T, dtype):
@@ -80,21 +61,6 @@ def _ev(tab, const, T, dtype):
     if callable(tab):
         return tab(T).astype(dtype)
     return jnp.full(T.shape, float(tab), dtype)
-
-
-def _pointwise_tab(tab) -> bool:
-    """True when ``tab`` is a pure POINTWISE function of T — safe to
-    re-evaluate on a transposed field.  Arbitrary callables may close over
-    spatial fields in the natural (nr, nphi, nz) layout (the documented
-    bimetal substrate/deposit pattern), so they are only safe to evaluate
-    in that layout; their result is transposed instead.  Set a
-    ``pointwise = True`` attribute on a custom callable to opt in to the
-    cheaper transposed re-evaluation."""
-    from .cartesian_varprop import PropertyTable
-
-    return (tab is None or not callable(tab)
-            or isinstance(tab, PropertyTable)
-            or getattr(tab, "pointwise", False))
 
 
 def _props(T, mat_ref: Material, k_table, cp_table):
@@ -133,160 +99,6 @@ def _face_phi(kf, active):
     return f
 
 
-def _solve_fields(a, b, c, d, implementation, interpret):
-    if implementation == "pallas_fields":
-        from ..solvers.pallas_fields import fused_tridiag_fields
-
-        return fused_tridiag_fields(a, b, c, d, interpret=interpret)
-    return thomas(a, b, c, d)
-
-
-def _solve_cyclic_fields(a, b, c, d, implementation, interpret):
-    if implementation == "pallas_fields":
-        from ..solvers.pallas_fields import fused_cyclic_fields
-
-        return fused_cyclic_fields(a, b, c, d, interpret=interpret)
-    return cyclic_thomas(a, b, c, d)
-
-
-def build_cyl_vp2_plan(active, grid: CylindricalGrid, zbc: ZFaceBC):
-    """Prebuilt vp2 face codes for a FIXED activation mask — one per birth
-    event segment (the masked-const family's "plan prebuilt" convention):
-    (code_r, code_p natural, code_z z-leading).  Pass to
-    ``adi_step_cyl_varprop(vp2_plan=...)`` to shed the per-step XLA code
-    builds (~8 B/cell/step); during active deposition (mask changing every
-    step, e.g. apps/spiral_tube) simply omit it — the step rebuilds."""
-    from ..solvers.pallas_vp2 import build_vp2_code
-
-    act_b = (jnp.ones(grid.shape, bool) if active is None
-             else active.astype(bool))
-    code_r = build_vp2_code(act_b, 0)
-    code_p = build_vp2_code(act_b, 1, periodic=True)
-    if not grid.is_annular:
-        code_p = code_p.at[0].set(jnp.int8(0))
-    clear = tuple(idx for idx, kind in
-                  ((0, zbc.kind_bot), (grid.nz - 1, zbc.kind_top))
-                  if kind == "dirichlet")
-    code_z = jnp.moveaxis(
-        build_vp2_code(act_b, 2, clear_rows=clear), 2, 0)
-    return (code_r, code_p, code_z)
-
-
-def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
-                 *, robin_inner, act, h_void, T_inf_void, h_front, source,
-                 emissivity, cp_table, interpret, constrain,
-                 vp2_plan=None):
-    """Tier-2 fully-fused BE chain: r -> phi -> z with every per-cell
-    quantity derived in kernel registers from T^n + 1-byte face codes
-    (solvers/pallas_vp2.py; VP2_DEFAULT note).  Semantics identical to
-    the vp-fields branch of adi_step_cyl_varprop — parity tested in
-    tests/test_vp2.py::test_step_vp2_matches_classic_tier."""
-    from ..solvers.differentiable import vp2_cyclic_solve, vp2_sweep_solve
-    from ..solvers.pallas_vp2 import build_vp2_code
-
-    dtype = T.dtype
-    nr, nphi, nz = grid.nr, grid.nphi, grid.nz
-    if constrain is None:
-        constrain = lambda x, stage: x
-    act_b = jnp.ones(T.shape, bool) if act is None else act
-    eps = float(emissivity)
-    h_f = float(h_void if h_front is None else h_front)
-    h_v = float(h_void)
-    tv = float(T_inf_void)
-    dtor = (dt / mat_ref.rho).astype(jnp.float32)
-
-    r = np.maximum(np.asarray(grid.r, np.float64), 1e-15)
-    r_imh = np.maximum(np.asarray(grid.r_imh, np.float64), 1e-15)
-    r_iph = np.asarray(grid.r_iph, np.float64)
-    dr = grid.dr
-    f32v = lambda v: jnp.asarray(v, jnp.float32)
-
-    # --- r sweep (axis 0, natural leading) ---------------------------------
-    glo_r = f32v(r_imh / (r * dr * dr))
-    ghi_r = f32v(r_iph / (r * dr * dr))
-    gsl_r = f32v(r_imh / (r * dr))
-    gsh_r = f32v(r_iph / (r * dr))
-    edge_r0 = edge_r1 = None
-    if (grid.is_annular and robin_inner is not None
-            and (robin_inner.h != 0.0 or eps > 0.0)):
-        edge_r0 = (float(robin_inner.h), float(r_imh[0] / (r[0] * dr)),
-                   float(robin_inner.T_inf))
-    if robin_outer is not None and (robin_outer.h != 0.0 or eps > 0.0):
-        edge_r1 = (float(robin_outer.h),
-                   float(r_iph[nr - 1] / (r[nr - 1] * dr)),
-                   float(robin_outer.T_inf))
-    code_r = (vp2_plan[0] if vp2_plan is not None
-              else build_vp2_code(act_b, 0))
-    spec_r = (k_specs[0], cp_spec, h_v, h_v, tv, eps, edge_r0, edge_r1)
-
-    if source is None:
-        rhs_r = None
-    else:
-        cpf = _ev(cp_table, mat_ref.cp, T, dtype)
-        s = (dt / (mat_ref.rho * cpf)) * source
-        if act is not None:
-            s = jnp.where(act, s, jnp.zeros((), dtype))
-        rhs_r = T + s
-
-    X = vp2_sweep_solve(
-        None if rhs_r is None else constrain(rhs_r, "r"),
-        T, code_r, glo_r, ghi_r, gsl_r, gsh_r, dtor, spec=spec_r,
-        interpret=interpret)
-
-    # --- phi sweep (cyclic axis 1, natural) --------------------------------
-    if nphi > 1:
-        geo2 = jnp.broadcast_to(
-            f32v(1.0 / (r * r * grid.dphi * grid.dphi))[:, None], (nr, nz))
-        gs2 = jnp.broadcast_to(
-            f32v(1.0 / (r * grid.dphi))[:, None], (nr, nz))
-        if vp2_plan is not None:
-            code_p = vp2_plan[1]
-        else:
-            code_p = build_vp2_code(act_b, 1, periodic=True)
-            if not grid.is_annular:
-                # full-disk axis-row regularity: r = 0 lines = identities
-                code_p = code_p.at[0].set(jnp.int8(0))
-        spec_p = (k_specs[1], cp_spec, h_v, tv, eps)
-        X = vp2_cyclic_solve(constrain(X, "phi"), T, code_p, geo2, gs2,
-                             dtor, spec=spec_p, interpret=interpret)
-
-    # --- z sweep (axis 2, NATURAL rhs/T/out; z-leading code) ---------------
-    ivz2 = 1.0 / (grid.dz * grid.dz)
-    geoz = np.full(nz, ivz2)
-    gs_z = np.full(nz, 1.0 / grid.dz)
-    z_pins = []
-    edge_z0 = edge_z1 = None
-    clear = []
-    for idx, kind, h, t_inf, t_dir in (
-            (0, zbc.kind_bot, zbc.h_bot, zbc.T_inf_bot, zbc.T_bot),
-            (nz - 1, zbc.kind_top, zbc.h_top, zbc.T_inf_top, zbc.T_top)):
-        if kind == "robin":
-            e = (float(h), 1.0 / grid.dz, float(t_inf))
-            if idx == 0:
-                edge_z0 = e
-            else:
-                edge_z1 = e
-        elif kind == "dirichlet":
-            geoz[idx] = 0.0
-            z_pins.append((idx, float(t_dir)))
-            clear.append(idx)       # no films on pinned rows
-        elif kind != "neumann0":
-            raise ValueError(f"unknown z-face BC kind: {kind!r}")
-    code_z = (vp2_plan[2] if vp2_plan is not None else jnp.moveaxis(
-        build_vp2_code(act_b, 2, clear_rows=tuple(clear)), 2, 0))
-    spec_z = (k_specs[2], cp_spec, h_v, h_f, tv, eps, edge_z0, edge_z1)
-
-    dn = constrain(X, "z")
-    for idx, t_dir in z_pins:
-        pin = jnp.asarray(t_dir, dtype)
-        if act is not None:         # void end cells hold their value
-            pin = jnp.where(act[:, :, idx], pin, dn[:, :, idx])
-        dn = dn.at[:, :, idx].set(pin)
-    return vp2_sweep_solve(dn, T, code_z, f32v(geoz), f32v(geoz),
-                           f32v(gs_z), f32v(gs_z), dtor, spec=spec_z,
-                           interpret=interpret, nat_rhs_out=True)
-
-
 def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
                          mat_ref: Material, *, dt,
                          robin_outer: RobinBC, zbc: ZFaceBC,
@@ -299,11 +111,8 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
                          emissivity: float = 0.0,
                          scheme: str = "be", theta: float = 0.5,
                          implementation: str = "auto",
-                         interpret: bool | None = None,
-                         constrain=None, z_solver=None,
-                         vp2: bool | None = None,
-                         vp2_plan=None,
-                         pallas_solvers: dict | None = None) -> jax.Array:
+                         interpret: bool = False,
+                         constrain=None, z_solver=None) -> jax.Array:
     """One variable-property cylindrical step (see module docstring).
 
     scheme: "be" (backward Euler, default — robust near the latent-heat
@@ -343,31 +152,17 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
     constrain: optional ``(x, stage) -> x`` hook called on each sweep's RHS
     with stage in {"r", "phi", "z"}; the multi-chip layer
     (dist/cylindrical.sharded_cyl_varprop_step) passes sharding constraints
-    here so every solve axis is chip-local.  With a constrain hook the
-    "auto" implementation stays on the XLA scan solvers (globally-shaped
-    Pallas calls cannot be partitioned).
+    here so every solve axis is chip-local (and asks for the scan: a
+    Pallas call has no partitioning rule for sharded operands).
 
     z_solver: optional ``(a, b, c, d) -> x`` tridiagonal solver in the
     z-LEADING (nz, nr, nphi) layout replacing the default z solve — the
     long-axis decomposition (dist/cylindrical.sharded_cyl_varprop_longz)
     passes the substructured distributed Thomas here so a z-sharded field
     never reshards.
-
-    pallas_solvers: optional dict overriding the three ``implementation=
-    "pallas"`` stream solves with drop-in callables of the SAME
-    signatures — ``"r"``/``"z"``: ``(d, f_hi, dw, sink, srhs, glo, ghi)``
-    (z streams in the z-leading layout, rhs/out natural), ``"phi"``:
-    ``(d, f_lo, dw, sink, srhs, geo2d)``.  The multi-chip layer
-    (dist/cylindrical.sharded_cyl_varprop_step_pallas) passes shard_map-
-    wrapped kernels here so each shard runs the fused Pallas solves on
-    its local block while the stream builds stay global XLA (halo shifts
-    lower to collectives).  Disables the vp2 tier (single-device only).
     """
     if jnp.dtype(T.dtype).itemsize < 4:
-        # sub-f32 states (bf16): solve at f32 and downcast once — the
-        # compressed kernels' stores/DMAs are f32 (a bandwidth-format bf16
-        # tier with stochastic rounding, like the Cartesian kernels', is
-        # future chip work)
+        # sub-f32 states (bf16): solve at f32 and downcast once
         out = adi_step_cyl_varprop(
             T.astype(jnp.float32), grid, mat_ref, dt=dt,
             robin_outer=robin_outer, zbc=zbc, k_table=k_table,
@@ -375,49 +170,15 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
             h_void=h_void, T_inf_void=T_inf_void, h_front=h_front,
             source=source, emissivity=emissivity, scheme=scheme,
             theta=theta, implementation=implementation,
-            interpret=interpret, constrain=constrain, z_solver=z_solver,
-            vp2=vp2, vp2_plan=vp2_plan, pallas_solvers=pallas_solvers)
+            interpret=interpret, constrain=constrain, z_solver=z_solver)
         return out.astype(T.dtype)
-    if implementation == "auto":
-        implementation = ("pallas" if (jax.default_backend() == "tpu"
-                                       and constrain is None) else "xla")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    kw = dict(implementation=implementation, interpret=interpret)
     if constrain is None:
         constrain = lambda x, stage: x
     dtype = T.dtype
     nr, nphi, nz = grid.nr, grid.nphi, grid.nz
     dt = jnp.asarray(dt, dtype)
     act = None if active is None else active.astype(bool)
-
-    if pallas_solvers is not None and (scheme != "be"
-                                       or implementation != "pallas"):
-        raise ValueError("pallas_solvers overrides the implementation="
-                         "'pallas' BE solves (the sharded tier is backward-"
-                         "Euler only, like dist/cylindrical)")
-
-    # tier-2 fully-fused path (module flag note): eligible when every
-    # property is a static pointwise spec and the solve chain is the plain
-    # single-chip BE composition
-    if vp2 is None:
-        vp2 = VP2_DEFAULT
-    if vp2 and implementation == "pallas" and scheme == "be" \
-            and z_solver is None and pallas_solvers is None \
-            and jnp.dtype(dtype).itemsize == 4:
-        from .cartesian_varprop import _table_spec
-
-        kts = (tuple(k_table) if isinstance(k_table, (tuple, list))
-               else (k_table,) * 3)
-        specs = tuple(_table_spec(t, mat_ref.k) for t in kts)
-        cp_spec = _table_spec(cp_table, mat_ref.cp)
-        if cp_spec is not None and all(s is not None for s in specs):
-            return _vp2_be_step(
-                T, grid, mat_ref, dt, robin_outer, zbc, specs, cp_spec,
-                robin_inner=robin_inner, act=act, h_void=h_void,
-                T_inf_void=T_inf_void, h_front=h_front, source=source,
-                emissivity=emissivity, cp_table=cp_table,
-                interpret=interpret, constrain=constrain,
-                vp2_plan=vp2_plan)
 
     (kf_r, kf_p, kf_z), w = _props(T, mat_ref, k_table, cp_table)
     dw = dt * w
@@ -493,24 +254,10 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
         srhs_r = srhs_r + s * T_inf_void
     def solve_r(rhs, dwx):
         d = constrain(rhs, "r")
-        if implementation == "pallas":
-            # differentiable wrapper: primal on the compressed kernel,
-            # pullback via the transposed scan (solvers/differentiable.py)
-            from ..solvers.differentiable import vp_sweep_solve
-
-            glo_v = jnp.asarray(r_imh / (r * dr * dr), dtype)
-            ghi_v = jnp.asarray(r_iph / (r * dr * dr), dtype)
-            if pallas_solvers is not None:
-                return pallas_solvers["r"](d, fr_hi, dwx, sink_r, srhs_r,
-                                           glo_v, ghi_v)
-            return vp_sweep_solve(
-                d, fr_hi, dwx, sink_r, srhs_r, glo_v, ghi_v,
-                interpret=interpret)
         a = -dwx * ga_r * fr
         c = -dwx * gc_r * fr_hi
         b = 1.0 + dwx * (ga_r * fr + gc_r * fr_hi + sink_r)
-        return _solve_fields(a, b, c, d + dwx * srhs_r,
-                             implementation, interpret)
+        return thomas(a, b, c, d + dwx * srhs_r, **kw)
 
     # --- phi streams (axis 1, periodic) -----------------------------------
     if nphi > 1:
@@ -533,29 +280,13 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
             srhs_p = srhs_p + s * T_inf_void
         def solve_phi(rhs, dwx):
             d_phi = constrain(rhs, "phi")
-            if implementation == "pallas":
-                from ..solvers.differentiable import vp_cyclic_solve
-
-                geo2d = jnp.broadcast_to(
-                    jnp.asarray(1.0 / (r * r * grid.dphi * grid.dphi),
-                                dtype)[:, None], (nr, nz))
-                # hi faces derived in-kernel from fp by periodicity (the
-                # fp_hi roll pass + its stream are gone, ~12 B/cell); the
-                # xla tier and the Douglas operators keep fp_hi
-                if pallas_solvers is not None:
-                    return pallas_solvers["phi"](d_phi, fp, dwx, sink_p,
-                                                 srhs_p, geo2d)
-                return vp_cyclic_solve(
-                    d_phi, fp, dwx, sink_p, srhs_p, geo2d,
-                    interpret=interpret)
             ap = -dwx * gphi * fp
             cp = -dwx * gphi * fp_hi
             bp = 1.0 + dwx * (gphi * (fp + fp_hi) + sink_p)
             t1 = lambda x: jnp.moveaxis(x, 1, 0)   # (nphi, nr, nz)
             return jnp.moveaxis(
-                _solve_cyclic_fields(t1(ap), t1(bp), t1(cp),
-                                     t1(d_phi + dwx * srhs_p),
-                                     implementation, interpret), 0, 1)
+                cyclic_thomas(t1(ap), t1(bp), t1(cp),
+                              t1(d_phi + dwx * srhs_p), **kw), 0, 1)
     else:
         solve_phi = None
 
@@ -570,155 +301,54 @@ def adi_step_cyl_varprop(T: jax.Array, grid: CylindricalGrid,
     z_pins = []   # (idx, pin value) applied to every z-solve rhs
     t2 = lambda x: jnp.moveaxis(x, 2, 0)   # (nz, nr, nphi)
 
-    # ONE implementation of the z-face BC folding and the material/void
-    # interface sinks, shared by the z-leading and natural-layout branches
-    # below — they differ only in how an end-slab is addressed (``at``/
-    # ``end``) and which layout the act/T fields are in (ADVICE r3: the
-    # two near-verbatim copies risked silent divergence).
-    def _make_z_end(at, end_T, end_act):
-        def z_end(idx, kind, h, t_inf, t_dir, sink_z, srhs_z):
-            if kind == "neumann0":
-                return sink_z, srhs_z      # face conductivity already 0
-            if kind == "robin":
-                s = (float(h) + hr(end_T(idx), float(t_inf))) / grid.dz
-                a = end_act(idx)
-                if a is not None:
-                    s = jnp.where(a, s, 0.0)
-                sink_z = at(sink_z, idx).add(s)
-                srhs_z = at(srhs_z, idx).add(s * float(t_inf))
-                return sink_z, srhs_z
-            if kind == "dirichlet":
-                geoz[idx] = 0.0
-                z_pins.append((idx, float(t_dir)))
-                sink_z = at(sink_z, idx).set(0.0)
-                srhs_z = at(srhs_z, idx).set(0.0)
-                return sink_z, srhs_z
+    fz = _face_g(kf_z, 2, -1, act if act is not None else
+                 jnp.ones(T.shape, bool)).astype(dtype)
+    fz_hi = jnp.concatenate([fz[:, :, 1:], jnp.zeros_like(fz[:, :, :1])],
+                            axis=2)
+    sink_z = jnp.zeros(T.shape, dtype)
+    srhs_z = jnp.zeros(T.shape, dtype)
+    if sink_on:
+        # material/void interface films: h_void on the lo face, h_front on
+        # the hi face
+        e_lo = act & ~shift_in(act, 2, -1, fill=True)
+        e_hi = act & ~shift_in(act, 2, +1, fill=True)
+        s = ((h_void + hr_void) * e_lo.astype(dtype)
+             + (h_f + hr_void) * e_hi.astype(dtype)) / grid.dz
+        sink_z = sink_z + s
+        srhs_z = srhs_z + s * T_inf_void
+    for idx, kind, h, t_inf, t_dir in (
+            (0, zbc.kind_bot, zbc.h_bot, zbc.T_inf_bot, zbc.T_bot),
+            (nz - 1, zbc.kind_top, zbc.h_top, zbc.T_inf_top, zbc.T_top)):
+        if kind == "neumann0":
+            continue                       # face conductivity already 0
+        if kind == "robin":
+            s = (float(h) + hr(T[:, :, idx], float(t_inf))) / grid.dz
+            if act is not None:
+                s = jnp.where(act[:, :, idx], s, 0.0)
+            sink_z = sink_z.at[:, :, idx].add(s)
+            srhs_z = srhs_z.at[:, :, idx].add(s * float(t_inf))
+        elif kind == "dirichlet":
+            geoz[idx] = 0.0
+            z_pins.append((idx, float(t_dir)))
+            sink_z = sink_z.at[:, :, idx].set(0.0)
+            srhs_z = srhs_z.at[:, :, idx].set(0.0)
+        else:
             raise ValueError(f"unknown z-face BC kind: {kind!r}")
-        return z_end
 
-    def _z_iface_sinks(actx, hr_vx, axis, sink_z, srhs_z):
-        """Material/void interface Robin films along z (axis = z's index
-        in this layout): h_void on the lo face, h_front on the hi face."""
-        e_lo = actx & ~shift_in(actx, axis, -1, fill=True)
-        e_hi = actx & ~shift_in(actx, axis, +1, fill=True)
-        s = ((h_void + hr_vx) * e_lo.astype(dtype)
-             + (h_f + hr_vx) * e_hi.astype(dtype)) / grid.dz
-        return sink_z + s, srhs_z + s * T_inf_void
-
-    # Layout-traffic fix (measured in the round-3 cyl-varprop trace: XLA
-    # copies/pads ~1.6 ms/step vs ~1.1 ms of kernels at (64,512,256)): on
-    # the fused BE path, build the z streams DIRECTLY in the z-leading
-    # layout from T's transpose — re-evaluating k_z(T)/cp(T) there is pure
-    # VPU work that XLA fuses with the transpose, whereas transposing the
-    # four finished streams (fz_hi, dt*w, sink, srhs) costs 8 full HBM
-    # passes.  The rebuild applies the identical elementwise computation
-    # to permuted data (verified to solver round-off by the parity tests —
-    # XLA does not guarantee bitwise equality across layouts/fusions).
-    z_fast = (implementation == "pallas" and z_solver is None
-              and scheme == "be")
-    if z_fast:
-        Tz = t2(T)
-        act_z = None if act is None else t2(act)
-        mz = act_z if act_z is not None else jnp.ones(Tz.shape, bool)
-        kz_tab = (k_table[2] if isinstance(k_table, (tuple, list))
-                  else k_table)
-        # pointwise tables rebuild in the z-leading layout (fuses with
-        # the transpose); spatial-closure callables (bimetal pattern)
-        # evaluate in the natural layout and the RESULT transposes
-        kz = (_ev(kz_tab, mat_ref.k, Tz, dtype) if _pointwise_tab(kz_tab)
-              else t2(kf_z))
-        wz = ((1.0 / (mat_ref.rho * _ev(cp_table, mat_ref.cp, Tz, dtype))
-               ).astype(dtype) if _pointwise_tab(cp_table) else t2(w))
-        dwz = dt * wz
-        hr_void_z = hr(Tz, T_inf_void)
-        # hi-face harmonic conductivity: fz_hi[i] = harm(k[i], k[i+1]),
-        # zero across void and at the top edge — same values as the
-        # natural-layout shifted-concat build (products commute exactly)
-        fzh = _face_g(kz, 0, +1, mz).astype(dtype)
-        sink_z = jnp.zeros(Tz.shape, dtype)
-        srhs_z = jnp.zeros(Tz.shape, dtype)
-        if sink_on:
-            sink_z, srhs_z = _z_iface_sinks(act_z, hr_void_z, 0,
-                                            sink_z, srhs_z)
-
-        z_end = _make_z_end(
-            lambda a, i: a.at[i], lambda i: Tz[i],
-            lambda i: None if act_z is None else act_z[i])
-        sink_z, srhs_z = z_end(0, zbc.kind_bot, zbc.h_bot, zbc.T_inf_bot,
-                               zbc.T_bot, sink_z, srhs_z)
-        sink_z, srhs_z = z_end(nz - 1, zbc.kind_top, zbc.h_top,
-                               zbc.T_inf_top, zbc.T_top, sink_z, srhs_z)
-
-        def solve_z(rhs, dwx):
-            from ..solvers.differentiable import vp_sweep_solve
-
-            del dwx   # BE only: dwz (z-leading rebuild of dt*w) is it
-            # NATURAL rhs/out: the kernel relays chunks in VMEM (chip-gated
-            # 1.81x pattern, scripts/znat_chip.py), so the chained rhs and
-            # the solution never pay a step-level transpose pair — with the
-            # session-H z-leading stream rebuilds this leaves only t2(T)
-            # as layout traffic in the whole step
-            dn_rhs = constrain(rhs, "z")
-            for idx, t_dir in z_pins:
-                pin = jnp.asarray(t_dir, dtype)
-                if act is not None:     # void end cells hold their value
-                    pin = jnp.where(act[:, :, idx], pin, dn_rhs[:, :, idx])
-                dn_rhs = dn_rhs.at[:, :, idx].set(pin)
-            gz = jnp.asarray(geoz, dtype)
-            if pallas_solvers is not None:
-                return pallas_solvers["z"](dn_rhs, fzh, dwz, sink_z,
-                                           srhs_z, gz, gz)
-            return vp_sweep_solve(dn_rhs, fzh, dwz, sink_z, srhs_z, gz, gz,
-                                  interpret=interpret, nat_rhs_out=True)
-    else:
-        fz = _face_g(kf_z, 2, -1, act if act is not None else
-                     jnp.ones(T.shape, bool)).astype(dtype)
-        fz_hi = jnp.concatenate([fz[:, :, 1:], jnp.zeros_like(fz[:, :, :1])],
-                                axis=2)
-        sink_z = jnp.zeros(T.shape, dtype)
-        srhs_z = jnp.zeros(T.shape, dtype)
-        if sink_on:
-            sink_z, srhs_z = _z_iface_sinks(act, hr_void, 2, sink_z, srhs_z)
-
-        z_end = _make_z_end(
-            lambda a, i: a.at[:, :, i], lambda i: T[:, :, i],
-            lambda i: None if act is None else act[:, :, i])
-        sink_z, srhs_z = z_end(0, zbc.kind_bot, zbc.h_bot, zbc.T_inf_bot,
-                               zbc.T_bot, sink_z, srhs_z)
-        sink_z, srhs_z = z_end(nz - 1, zbc.kind_top, zbc.h_top,
-                               zbc.T_inf_top, zbc.T_top, sink_z, srhs_z)
-
-        def solve_z(rhs, dwx):
-            dz_rhs = constrain(rhs, "z")
-            for idx, t_dir in z_pins:
-                pin = jnp.asarray(t_dir, dtype)
-                if act is not None:  # void end cells hold their value
-                    pin = jnp.where(act[:, :, idx], pin, dz_rhs[:, :, idx])
-                dz_rhs = dz_rhs.at[:, :, idx].set(pin)
-            if z_solver is not None:
-                colz = lambda v: jnp.asarray(v, dtype)[None, None, :]
-                az = -dwx * colz(geoz) * fz
-                cz = -dwx * colz(geoz) * fz_hi
-                bz = 1.0 + dwx * (colz(geoz) * (fz + fz_hi) + sink_z)
-                return jnp.moveaxis(
-                    z_solver(t2(az), t2(bz), t2(cz),
-                             t2(dz_rhs + dwx * srhs_z)), 0, 2)
-            if implementation == "pallas":
-                from ..solvers.differentiable import vp_sweep_solve
-
-                gz = jnp.asarray(geoz, dtype)
-                return jnp.moveaxis(
-                    vp_sweep_solve(t2(dz_rhs), t2(fz_hi), t2(dwx),
-                                   t2(sink_z), t2(srhs_z), gz, gz,
-                                   interpret=interpret), 0, 2)
-            colz = lambda v: jnp.asarray(v, dtype)[None, None, :]
-            az = -dwx * colz(geoz) * fz
-            cz = -dwx * colz(geoz) * fz_hi
-            bz = 1.0 + dwx * (colz(geoz) * (fz + fz_hi) + sink_z)
-            return jnp.moveaxis(
-                _solve_fields(t2(az), t2(bz), t2(cz),
-                              t2(dz_rhs + dwx * srhs_z),
-                              implementation, interpret), 0, 2)
+    def solve_z(rhs, dwx):
+        dz_rhs = constrain(rhs, "z")
+        for idx, t_dir in z_pins:
+            pin = jnp.asarray(t_dir, dtype)
+            if act is not None:  # void end cells hold their value
+                pin = jnp.where(act[:, :, idx], pin, dz_rhs[:, :, idx])
+            dz_rhs = dz_rhs.at[:, :, idx].set(pin)
+        colz = lambda v: jnp.asarray(v, dtype)[None, None, :]
+        az = -dwx * colz(geoz) * fz
+        cz = -dwx * colz(geoz) * fz_hi
+        bz = 1.0 + dwx * (colz(geoz) * (fz + fz_hi) + sink_z)
+        solve = z_solver or (lambda *abcd: thomas(*abcd, **kw))
+        return jnp.moveaxis(
+            solve(t2(az), t2(bz), t2(cz), t2(dz_rhs + dwx * srhs_z)), 0, 2)
 
     # --- scheme dispatch ---------------------------------------------------
     if scheme == "be":
@@ -778,7 +408,7 @@ def adi_step_cyl_varprop_masked(T: jax.Array, grid: CylindricalGrid,
                                 emissivity: float = 0.0,
                                 scheme: str = "be", theta: float = 0.5,
                                 implementation: str = "auto",
-                                interpret: bool | None = None,
+                                interpret: bool = False,
                                 constrain=None) -> jax.Array:
     """Element-birth clamp wrapper — reference ``adi_step_masked`` semantics
     (quick_spiral_deposition_gif_v5.py:31-70) on the varprop step: void

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Single-command suite run that SURVIVES the environmental XLA-CPU
-# backend_compile segfault flake (NOTES.md round 3: jaxlib's CPU backend
+# backend_compile segfault flake (jaxlib's CPU backend
 # intermittently segfaults during compilation; reruns pass and the crash
 # point moves — it is not a test bug).
 #

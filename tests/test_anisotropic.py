@@ -86,12 +86,8 @@ def test_lumped_robin_cooling_per_axis_areas():
 
 
 def test_pallas_matches_xla_anisotropic():
-    """Fused-kernel step == scan step on an anisotropic masked grid with
-    Robin + Neumann + Dirichlet (interpret mode), both plan flavors, and
-    with pad_to_tile."""
-    from adi_thermal_fields_tpu.step.cartesian_pallas import (adi_step_pallas,
-                                                              build_sweep_plan)
-
+    """Triton-kernel step (interpret mode) == scan step on an anisotropic
+    masked grid with Robin + Neumann + Dirichlet, and with Robin alone."""
     grid = CartesianGrid(12, 10, 14, 1e-3, dy=2e-3, dz=0.5e-3)
     mat = Material(7800.0, 490.0, 54.0)
     rng = np.random.default_rng(8)
@@ -101,32 +97,16 @@ def test_pallas_matches_xla_anisotropic():
     packs = build_coeff_packs(mask, grid, mat, robin_h=150.0,
                               neumann={"z+": 3e5}, dirichlet_mask=dm,
                               dirichlet_value=300.0, dtype=jnp.float32)
-    ref = adi_step_cartesian(T, mask, packs, grid, mat, dt=0.05, theta=0.5,
-                             t_inf=20.0)
-
-    plan = build_sweep_plan(mask, packs)
-    got = adi_step_pallas(T, plan, grid, mat, dt=0.05, theta=0.5, t_inf=20.0,
-                          interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6,
-                               atol=1e-4)
-
-    planp = build_sweep_plan(mask, packs, pad_to_tile=True)
-    gotp = adi_step_pallas(T, planp, grid, mat, dt=0.05, theta=0.5,
-                           t_inf=20.0, interpret=True)
-    np.testing.assert_array_equal(np.asarray(gotp), np.asarray(got))
-
-    # plan-lite with per-axis Robin constants (scalar-h, no Neu/Dir)
     packs2 = build_coeff_packs(mask, grid, mat, robin_h=150.0,
                                dtype=jnp.float32)
-    ref2 = adi_step_cartesian(T, mask, packs2, grid, mat, dt=0.05, theta=0.5,
-                              t_inf=20.0)
-    rc = tuple(150.0 / (mat.rho * mat.cp * d) for d in grid.spacing)
-    plan_l = build_sweep_plan(mask, None, has_neumann=False,
-                              has_dirichlet=False, robin_const=rc)
-    got_l = adi_step_pallas(T, plan_l, grid, mat, dt=0.05, theta=0.5,
-                            t_inf=20.0, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_l), np.asarray(ref2),
-                               rtol=1e-6, atol=1e-4)
+    for pk in (packs, packs2):
+        ref = adi_step_cartesian(T, mask, pk, grid, mat, dt=0.05, theta=0.5,
+                                 t_inf=20.0, implementation="xla")
+        got = adi_step_cartesian(T, mask, pk, grid, mat, dt=0.05, theta=0.5,
+                                 t_inf=20.0, implementation="pallas",
+                                 interpret=True)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                                   rtol=1e-6, atol=1e-4)
 
 
 def test_engine_anisotropic_lite():

@@ -1,11 +1,9 @@
-"""bf16 production-accuracy gates — REAL-CHIP tests.
+"""bf16 production-accuracy gates.
 
-Run with ``ADI_TEST_TPU=1 python -m pytest tests/test_bf16_drift.py`` (the
-conftest then leaves the real backend in place; the rest of the suite is
-CPU/x64-only).  Skipped automatically on any non-TPU backend: the stochastic
-stores need the hardware PRNG (pltpu.prng does not lower in interpret mode).
+Stochastic rounding is plain JAX (``apps.engine.stochastic_round``, random
+bits from ``jax.random``), so these run on every backend.
 
-Pins the two bf16 hazards NOTES.md records from hardware (round-2 session 2c):
+Pins the two bf16 hazards of a bf16 WAAM state:
 
 1. ROUND-TO-NEAREST FREEZE: per-sub-step cooling updates smaller than the
    bf16 quantum (~4-8 K at 900-1500 C) round to zero, so a bf16 WAAM soak
@@ -13,18 +11,12 @@ Pins the two bf16 hazards NOTES.md records from hardware (round-2 session 2c):
    freeze IS detected (RTN cools far less than f32) so the hazard cannot
    silently vanish from the kernels' behavior unnoticed.
 2. STOCHASTIC-ROUNDING DRIFT ENVELOPE: with per-step seeded stochastic
-   stores the same run tracks f32 within the recorded envelope (~14 C max
-   over 30 steps on a 900 C Robin-cooling field; asserted with margin).
+   stores the same run tracks f32 within the envelope (~14 C max over 30
+   steps on a 900 C Robin-cooling field; asserted with margin).
 """
 import numpy as np
-import pytest
 
-import jax
 import jax.numpy as jnp
-
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="needs the real TPU PRNG (run with ADI_TEST_TPU=1 on hardware)")
 
 
 def _cooling_run(dtype, stochastic, n_steps=30):
@@ -38,7 +30,7 @@ def _cooling_run(dtype, stochastic, n_steps=30):
     dt = 0.002
     prepare, advance = make_cartesian_engine(
         grid, mat, theta=0.5, t_inf=20.0, robin_h=200.0, dtype=dtype,
-        implementation="pallas", stochastic_rounding=stochastic)
+        stochastic_rounding=stochastic)
     mask = jnp.ones(grid.shape, bool)
     T = jnp.full(grid.shape, 900.0, dtype)
     out = advance(T, prepare(mask), jnp.asarray(dt, dtype),
@@ -50,8 +42,8 @@ def test_bf16_stochastic_drift_within_envelope():
     ref = _cooling_run(jnp.float32, False)
     sr = _cooling_run(jnp.bfloat16, True)
     drift = np.abs(sr - ref)
-    # recorded hardware envelope: max 13.9 C, mean 1.1 C over 30 steps
-    # (NOTES.md round-2 session 2c); asserted with ~50% regression margin
+    # envelope: max ~14 C, mean ~1 C over 30 steps; asserted with ~50%
+    # margin
     assert drift.max() < 21.0, drift.max()
     assert drift.mean() < 2.5, drift.mean()
 
@@ -64,7 +56,9 @@ def test_bf16_round_to_nearest_freeze_detected():
     rtn = _cooling_run(jnp.bfloat16, False)
     cooled_ref = 900.0 - ref.mean()
     cooled_rtn = 900.0 - rtn.mean()
-    assert cooled_ref > 0.5  # the f32 run does cool
+    # the f32 run does cool: lumped h*A/(rho cp V)*(T - T_inf) ~ 5 K/s over
+    # 30 x 2 ms gives ~0.3 K of mean cooling
+    assert cooled_ref > 0.2
     # RTN recovers less than half of the true cooling (measured: ~0)
     assert cooled_rtn < 0.5 * cooled_ref, (cooled_rtn, cooled_ref)
 
@@ -80,7 +74,7 @@ def test_bf16_stochastic_seed_decorrelates_substeps():
     mat = Material(7800.0, 490.0, 54.0)
     prepare, advance = make_cartesian_engine(
         grid, mat, robin_h=200.0, dtype=jnp.bfloat16,
-        implementation="pallas", stochastic_rounding=True)
+        stochastic_rounding=True)
     mask = jnp.ones(grid.shape, bool)
     T = jnp.full(grid.shape, 900.0, jnp.bfloat16)
     prep = prepare(mask)

@@ -169,8 +169,8 @@ def test_goldak_source_integrates_to_power_and_heats():
 
 
 def test_float32_adequacy_vs_float64():
-    """SURVEY.md §7 "hard parts": the reference runs float64; TPU runs
-    float32.  Over a 50-step masked Robin cooling run the f32 trajectory must
+    """SURVEY.md §7 "hard parts": the reference runs float64; the GPU
+    path runs float32.  Over a 50-step masked Robin cooling run the f32 trajectory must
     track f64 to well below the analytic-oracle tolerances (degrees-scale)."""
     grid, mat = _setup(nx=16, ny=14, nz=12)
     rng = np.random.default_rng(5)
@@ -262,10 +262,10 @@ def test_radiative_cooling_matches_lumped_ode():
 
 
 def test_engine_pallas_pad_to_tile_matches_xla():
-    """The single-device pallas engine pads hostile domains to tile-friendly
-    shapes (void padding) once per event segment; run a birth schedule
-    through EventLoop on a non-multiple-of-8/128 grid and require bitwise
-    agreement with the XLA engine (interpret-mode kernels on CPU)."""
+    """The Triton-kernel engine on a hostile (no power-of-two) grid: every
+    batch block is ragged and masked.  Run a birth schedule through
+    EventLoop and require agreement with the XLA engine (interpret-mode
+    kernel on CPU)."""
     from adi_thermal_fields_tpu.apps.engine import (EventLoop,
                                                     make_cartesian_engine)
 
@@ -446,16 +446,25 @@ def test_engine_multi_threshold_history():
 
 
 def test_engine_stochastic_rounding_guard():
-    """stochastic rounding needs the TPU PRNG; interpret mode must refuse
-    with a clear error instead of failing deep in Mosaic lowering."""
+    """Stochastic rounding targets bfloat16 states; another sub-f32 state
+    dtype must refuse with a clear error, and the interpret-mode kernel
+    engine honours it for bfloat16."""
     from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
 
     grid = CartesianGrid(8, 8, 6, 1e-3)
     mat = Material(7800.0, 490.0, 54.0)
     try:
-        make_cartesian_engine(grid, mat, robin_h=30.0, dtype=jnp.bfloat16,
+        make_cartesian_engine(grid, mat, robin_h=30.0, dtype=jnp.float16,
                               implementation="pallas", interpret=True,
                               stochastic_rounding=True)
         assert False, "expected ValueError"
     except ValueError as e:
         assert "stochastic" in str(e)
+    prep, adv = make_cartesian_engine(
+        grid, mat, robin_h=30.0, dtype=jnp.bfloat16,
+        implementation="pallas", interpret=True, stochastic_rounding=True)
+    out = adv(jnp.full(grid.shape, 900.0, jnp.bfloat16),
+              prep(jnp.ones(grid.shape, bool)), jnp.bfloat16(0.05),
+              jnp.int32(2), 0.0)
+    assert out.dtype == jnp.bfloat16
+    assert bool(jnp.isfinite(out.astype(jnp.float32)).all())

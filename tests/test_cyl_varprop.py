@@ -9,8 +9,8 @@ spiral/tube deposition family.  Gates:
     and full-disk (axis-row regularity) alike;
   * each variable-coefficient sweep matches an independent dense-matrix
     numpy oracle built straight from the FV physics;
-  * the Pallas field-kernel path (interpret) is bit-comparable to the XLA
-    scan path;
+  * the Triton-kernel solver tier (interpret) is bit-comparable to the
+    scan tier;
   * latent heat (apparent_cp) conserves the monotone-cooling property and
     slows cooling through the mushy interval;
   * the clamp-masked wrapper matches reference adi_step_masked semantics.
@@ -163,7 +163,7 @@ def test_variable_sweeps_match_dense_oracle():
 
 
 def test_pallas_field_path_matches_xla():
-    """implementation='pallas' (field kernels, interpret mode) must agree
+    """implementation='pallas' (Triton kernel, interpret mode) must agree
     with the XLA scan path to solver round-off on annular AND full-disk
     grids, with variable k and cp."""
     mat = Material(7800.0, 490.0, 54.0)
@@ -349,13 +349,11 @@ def test_radiation_uniform_field_equals_scalar_film_oracle():
 
 
 def test_compressed_tier_matches_materialized_and_xla():
-    """The three implementation tiers — 'pallas' (compressed stream kernels,
-    solvers/pallas_vpfields.py), 'pallas_fields' (materialized a/b/c/d +
-    generic field kernels) and 'xla' (scan) — must agree to solver
-    round-off on the RICHEST configuration: element-birth mask, mixed-
-    ambient interface sinks, growth-front film, radiation, annular inner
-    Robin, and a Dirichlet z end (exercising the zeroed-geometry pin row
-    of the compressed kernel)."""
+    """The two solver tiers — 'pallas' (the Triton kernel, interpret mode)
+    and 'xla' (scan) — must agree to solver round-off on the RICHEST
+    configuration: element-birth mask, mixed-ambient interface sinks,
+    growth-front film, radiation, annular inner Robin, and a Dirichlet z
+    end (a zeroed-geometry pin row)."""
     mat = Material(7800.0, 490.0, 54.0)
     rob = RobinBC(300.0, 20.0)
     rin = RobinBC(80.0, 30.0)
@@ -376,12 +374,7 @@ def test_compressed_tier_matches_materialized_and_xla():
         a = adi_step_cyl_varprop(T0, grid, mat, implementation="xla", **kw)
         b = adi_step_cyl_varprop(T0, grid, mat, implementation="pallas",
                                  interpret=True, **kw)
-        c = adi_step_cyl_varprop(T0, grid, mat,
-                                 implementation="pallas_fields",
-                                 interpret=True, **kw)
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=1e-12, atol=1e-9)
-        np.testing.assert_allclose(np.asarray(c), np.asarray(a),
                                    rtol=1e-12, atol=1e-9)
 
 
@@ -562,9 +555,8 @@ def test_radiation_lumped_ode_oracle():
 
 
 def test_pallas_tier_gradients_match_xla():
-    """jax.grad through the COMPRESSED kernel tier (custom VJPs,
-    solvers/differentiable.vp_sweep_solve / vp_cyclic_solve) matches the
-    scan tier's gradients on the full masked+sinks+Dirichlet
+    """jax.grad through the Triton-kernel tier (its custom VJP,
+    solvers/thomas_triton.py) matches the scan tier's gradients on the full masked+sinks+Dirichlet
     configuration — both wrt the initial field and a conductivity
     parameter (which flows into every stream: faces, dw, sinks)."""
     mat = Material(7800.0, 490.0, 54.0)
@@ -596,8 +588,7 @@ def test_pallas_tier_gradients_match_xla():
 
 
 def test_bf16_state_upcast_solve():
-    """bfloat16 states solve at f32 and downcast once (the compressed
-    kernels' stores are f32): the result tracks the f64 scan run within
+    """bfloat16 states solve at f32 and downcast once: the result tracks the f64 scan run within
     the bf16 quantum over a short cooldown, on both tiers."""
     mat = Material(7800.0, 490.0, 54.0)
     rob = RobinBC(300.0, 20.0)
@@ -651,7 +642,7 @@ def test_bimetal_substrate_deposit():
     # is harmonic-mean limited: harm(54, 540) ~ 98, so expect ~1.5x)
     e_sub = lambda X: float(jnp.sum(jnp.where(substrate, X - 20.0, 0.0)))
     assert e_sub(fast) > 1.3 * e_sub(same)
-    # and the compressed tier agrees on the bimetal configuration
+    # and the kernel tier agrees on the bimetal configuration
     fast_p = adi_step_cyl_varprop(hot_top, grid, mat,
                                   k_table=kt_bimetal(540.0),
                                   implementation="pallas", interpret=True,

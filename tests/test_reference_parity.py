@@ -1,7 +1,7 @@
 """Bitwise-level parity against the reference implementation.
 
 These tests import the reference package from /root/reference (read-only,
-pure-Python fallback when Numba is absent) and compare our TPU formulation on
+pure-Python fallback when Numba is absent) and compare our batched formulation on
 tiny grids.  They are skipped automatically when the reference checkout is not
 present, so the shipped test suite remains self-contained.
 

@@ -284,11 +284,13 @@ def test_sharded_masked_clamp_cylindrical_matches_single_device():
 
 
 def test_sharded_pallas_step_matches_xla(monkeypatch):
-    """The shard_map + fused-kernel step (interpret mode on the virtual mesh)
-    matches the single-device scan-path step."""
-    from adi_thermal_fields_tpu.dist.cartesian_pallas import (
-        shard_plan, sharded_adi_step_pallas)
-    from adi_thermal_fields_tpu.step.cartesian_pallas import build_sweep_plan
+    """The sharded step (scan solves on the virtual mesh) matches the
+    single-device step on the Triton-kernel tier (interpret mode); an
+    engine asked for the kernel on a mesh refuses (no sharded kernel
+    tier)."""
+    import pytest
+
+    from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
 
     grid = CartesianGrid(16, 16, 16, 1e-3)
     mat = Material(7800.0, 490.0, 54.0)
@@ -302,39 +304,28 @@ def test_sharded_pallas_step_matches_xla(monkeypatch):
     ref = T0
     for _ in range(2):
         ref = adi_step(ref, mask, packs, grid, mat, dt=dt, theta=theta,
-                       t_inf=t_inf)
+                       t_inf=t_inf, implementation="pallas", interpret=True)
 
     mesh = make_mesh()
-    plan = shard_plan(build_sweep_plan(mask, packs, has_neumann=False,
-                                       has_dirichlet=False), mesh)
-    step = sharded_adi_step_pallas(grid, mat, mesh, theta=theta, t_inf=t_inf,
-                                   interpret=True)
+    step = sharded_adi_step(grid, mat, mesh, theta=theta)
     T = shard_field(T0, mesh, 0)
     for _ in range(2):
-        T = step(T, plan, dt)
+        T = step(T, shard_field(mask, mesh, 0), packs, dt, t_inf)
     assert len(T.sharding.device_set) == 8
     np.testing.assert_allclose(np.asarray(T), np.asarray(ref), rtol=1e-11,
                                atol=1e-9)
-
-    # plan-lite (scalar-h Robin, coeff derived in-kernel) sharded: bitwise
-    # identical to the field-plan sharded step
-    C = 250.0 / (mat.rho * mat.cp * grid.dx)
-    plan_l = shard_plan(build_sweep_plan(mask, packs, has_neumann=False,
-                                         has_dirichlet=False,
-                                         robin_const=C), mesh)
-    Tl = shard_field(T0, mesh, 0)
-    for _ in range(2):
-        Tl = step(Tl, plan_l, dt)
-    np.testing.assert_array_equal(np.asarray(Tl), np.asarray(T))
+    with pytest.raises(ValueError, match="sharded"):
+        make_cartesian_engine(grid, mat, robin_h=250.0, mesh=mesh,
+                              implementation="pallas", interpret=True)
 
 
 def test_sharded_masked_cylindrical_pallas_matches_single_device():
-    """Production multi-chip element birth: the compressed masked kernels
-    under shard_map (interpret mode on the virtual mesh) vs the
-    single-device masked-Robin step."""
+    """Multi-chip element birth: the sharded masked-Robin step (scan
+    solves on the virtual mesh) vs the single-device step on the
+    Triton-kernel tier (interpret mode)."""
     from adi_thermal_fields_tpu import CylindricalGrid, RobinBC, ZFaceBC
     from adi_thermal_fields_tpu.dist.cylindrical import (
-        sharded_cylindrical_masked_step_pallas)
+        sharded_cylindrical_masked_step)
     from adi_thermal_fields_tpu.step.cylindrical_masked import (
         adi_step_masked_robin)
 
@@ -357,11 +348,11 @@ def test_sharded_masked_cylindrical_pallas_matches_single_device():
     ref = T0
     for _ in range(2):
         ref = adi_step_masked_robin(ref, grid, mat, dt=dt, active=active,
-                                    implementation="xla", **kw)
+                                    implementation="pallas", interpret=True,
+                                    **kw)
 
     mesh = make_mesh()
-    step = sharded_cylindrical_masked_step_pallas(grid, mat, mesh,
-                                                  interpret=True, **kw)
+    step = sharded_cylindrical_masked_step(grid, mat, mesh, **kw)
     spec = jax.sharding.NamedSharding(mesh,
                                       jax.sharding.PartitionSpec(None, "a", "b"))
     T = jax.device_put(T0, spec)
@@ -422,16 +413,13 @@ def test_sharded_engine_thermal_history_matches_single_device():
 
 
 def test_sharded_fused_varprop_matches_single_device():
-    """dist/varprop.sharded_adi_step_varprop_fused (per-shard fused varprop
-    kernels + XLA-collective explicit pass) == the single-device fused step,
-    scalar-h and radiative h-field modes (the engine's pod configuration for
-    latent-heat / melt-pool / radiation physics)."""
-    from adi_thermal_fields_tpu.bc.radiation import radiative_h
-    from adi_thermal_fields_tpu.dist.varprop import (
-        sharded_adi_step_varprop_fused)
+    """The varprop engine on the mesh (scan solves, XLA-collective halos)
+    == the single-device engine on the Triton-kernel tier (interpret mode),
+    scalar-h and radiative film modes (the engine's multi-device
+    configuration for latent-heat / melt-pool / radiation physics)."""
+    from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
     from adi_thermal_fields_tpu.step.cartesian_varprop import (
-        adi_step_varprop_fused, apparent_cp, build_varprop_codes,
-        melt_pool_enhanced_k)
+        apparent_cp, melt_pool_enhanced_k)
 
     grid = CartesianGrid(16, 16, 16, 1e-3, dz=0.8e-3)
     mat = Material(7800.0, 490.0, 54.0)
@@ -441,50 +429,28 @@ def test_sharded_fused_varprop_matches_single_device():
                               100.0 + 1300.0 * rng.random(grid.shape), 20.0))
     kt = melt_pool_enhanced_k(mat.k, 1420.0, 1470.0, enhancement=4.0)
     ct = apparent_cp(mat.cp, mat.cp, 2.7e5, 1420.0, 1470.0)
-    codes = build_varprop_codes(mask)
-    dt, h = 0.02, 40.0
-
-    ref = T0
-    for _ in range(3):
-        ref = adi_step_varprop_fused(ref, mask, codes, grid, mat,
-                                     k_table=kt, cp_table=ct, dt=dt,
-                                     theta=0.5, t_inf=20.0, robin_h=h,
-                                     interpret=True)
-
     mesh = make_mesh()
-    step = sharded_adi_step_varprop_fused(grid, mat, mesh, k_table=kt,
-                                          cp_table=ct, theta=0.5,
-                                          t_inf=20.0, robin_h=h,
-                                          interpret=True)
-    T = shard_field(T0, mesh, 0)
-    m = shard_field(mask, mesh, 0)
-    for _ in range(3):
-        T = step(T, m, codes, dt)
-    assert len(T.sharding.device_set) == 8
-    np.testing.assert_allclose(np.asarray(T), np.asarray(ref), rtol=1e-12,
-                               atol=1e-12)
-
-    # radiative film mode
-    hf = radiative_h(T0, 0.5, 20.0, h_conv=15.0)
-    ref = adi_step_varprop_fused(T0, mask, codes, grid, mat, k_table=kt,
-                                 cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                                 h_field=hf, interpret=True)
-    step_r = sharded_adi_step_varprop_fused(grid, mat, mesh, k_table=kt,
-                                            cp_table=ct, theta=0.5,
-                                            t_inf=20.0, interpret=True)
-    got = step_r(shard_field(T0, mesh, 0), m, codes, dt, h_field=hf)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-12,
-                               atol=1e-12)
+    for films in (dict(robin_h=40.0),
+                  dict(robin_h=15.0, emissivity=0.5)):
+        kw = dict(k_table=kt, cp_table=ct, theta=0.5, t_inf=20.0, **films)
+        prep1, adv1 = make_cartesian_engine(
+            grid, mat, implementation="pallas", interpret=True, **kw)
+        ref = adv1(T0, prep1(mask), jnp.asarray(0.02), jnp.int32(3), 0.0)
+        prep8, adv8 = make_cartesian_engine(grid, mat, mesh=mesh, **kw)
+        T = adv8(shard_field(T0, mesh, 0), prep8(shard_field(mask, mesh, 0)),
+                 jnp.asarray(0.02), jnp.int32(3), 0.0)
+        assert len(T.sharding.device_set) == 8
+        np.testing.assert_allclose(np.asarray(T), np.asarray(ref),
+                                   rtol=1e-12, atol=1e-12)
 
 
 def test_sharded_fused_varprop_bf16_mixed():
-    """Sharded fused varprop in bf16 (mixed round-to-nearest; the
-    stochastic path is TPU-PRNG-only) stays within the bf16 quantization
-    envelope of the f32 sharded result."""
-    from adi_thermal_fields_tpu.dist.varprop import (
-        sharded_adi_step_varprop_fused)
+    """The sharded varprop engine with a bf16 state (f32 solve, one
+    stochastically rounded store per sub-step) stays within the bf16
+    quantization envelope of the f32 sharded result."""
+    from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
     from adi_thermal_fields_tpu.step.cartesian_varprop import (
-        apparent_cp, build_varprop_codes, melt_pool_enhanced_k)
+        apparent_cp, melt_pool_enhanced_k)
 
     grid = CartesianGrid(16, 16, 16, 1e-3)
     mat = Material(7800.0, 490.0, 54.0)
@@ -495,16 +461,18 @@ def test_sharded_fused_varprop_bf16_mixed():
                               20.0), jnp.float32)
     kt = melt_pool_enhanced_k(mat.k, 1420.0, 1470.0, enhancement=4.0)
     ct = apparent_cp(mat.cp, mat.cp, 2.7e5, 1420.0, 1470.0)
-    codes = build_varprop_codes(mask)
 
     mesh = make_mesh()
-    step = sharded_adi_step_varprop_fused(grid, mat, mesh, k_table=kt,
-                                          cp_table=ct, theta=0.5,
-                                          t_inf=20.0, robin_h=40.0,
-                                          interpret=True)
     m = shard_field(mask, mesh, 0)
-    ref = step(shard_field(T0, mesh, 0), m, codes, 0.02)
-    got = step(shard_field(T0.astype(jnp.bfloat16), mesh, 0), m, codes, 0.02)
+    out = {}
+    for dtype in (jnp.float32, jnp.bfloat16):
+        prep, adv = make_cartesian_engine(
+            grid, mat, k_table=kt, cp_table=ct, theta=0.5, t_inf=20.0,
+            robin_h=40.0, mesh=mesh, dtype=dtype,
+            stochastic_rounding=dtype == jnp.bfloat16)
+        out[dtype] = adv(shard_field(T0.astype(dtype), mesh, 0), prep(m),
+                         jnp.asarray(0.02, dtype), jnp.int32(1), 0.0)
+    got, ref = out[jnp.bfloat16], out[jnp.float32]
     assert got.dtype == jnp.bfloat16
     assert len(got.sharding.device_set) == 8
     np.testing.assert_allclose(np.asarray(got, np.float32),
@@ -633,15 +601,14 @@ def test_sharded_cyl_varprop_longz_matches_single_device():
 
 
 def test_sharded_cyl_varprop_pallas_matches_single_device():
-    """Sharded PALLAS tier for the cylindrical varprop family (VERDICT r4
-    missing #3 — the last dist-layer asymmetry): shard_map-wrapped fused
-    vp-fields solves on per-shard blocks + global-XLA stream builds must
-    match the single-device pallas tier (same kernels, whole domain).
-    Radiative films + element birth + annular inner Robin exercised."""
+    """The sharded cylindrical varprop step (scan solves, per-stage layouts
+    on the virtual mesh) must match the single-device Triton-kernel tier
+    (interpret mode).  Radiative films + element birth + annular inner
+    Robin exercised."""
     from adi_thermal_fields_tpu import (CylindricalGrid, PropertyTable,
                                         RobinBC, ZFaceBC, apparent_cp)
     from adi_thermal_fields_tpu.dist.cylindrical import (
-        sharded_cyl_varprop_step_pallas)
+        sharded_cyl_varprop_step)
     from adi_thermal_fields_tpu.step.cylindrical_varprop import (
         adi_step_cyl_varprop)
 
@@ -664,11 +631,10 @@ def test_sharded_cyl_varprop_pallas_matches_single_device():
     for _ in range(2):
         ref = adi_step_cyl_varprop(ref, grid, mat, dt=dt, active=act,
                                    implementation="pallas", interpret=True,
-                                   vp2=False, **kw)
+                                   **kw)
 
     mesh = make_mesh()
-    step = sharded_cyl_varprop_step_pallas(grid, mat, mesh,
-                                           interpret=True, **kw)
+    step = sharded_cyl_varprop_step(grid, mat, mesh, **kw)
     sh = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(None, "a", "b"))
     T = jax.device_put(T0, sh)

@@ -136,20 +136,21 @@ def test_spectral_phi_full_disk_axis_identity():
     assert not np.allclose(X[1], np.asarray(T)[1])
 
 
-def test_fused_cyclic_const_dense_oracle():
-    """The constant-coefficient cyclic Pallas kernel (interpret mode) vs
-    dense periodic solves, including the fac=0 identity row (full-disk axis
-    regularity) and both even and odd ring lengths."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import fused_cyclic_const
-
+def test_cyclic_kernel_const_dense_oracle():
+    """Constant-coefficient cyclic systems solved by Sherman-Morrison over
+    the Triton kernel (interpret mode) vs dense periodic solves, including
+    the fac=0 identity row (full-disk axis regularity) and both even and
+    odd ring lengths."""
     rng = np.random.default_rng(9)
     for n in (3, 5, 16, 36):
         b1, b2 = 8, 8
         rhs = rng.standard_normal((n, b1, b2))
         fac = 0.1 + 12.0 * rng.random((b1, b2))
         fac[0, :] = 0.0  # identity rows
-        x = np.asarray(fused_cyclic_const(jnp.asarray(rhs), jnp.asarray(fac),
-                                          interpret=True))
+        f3 = np.broadcast_to(fac, (n, b1, b2))
+        x = np.asarray(cyclic_thomas(
+            jnp.asarray(-f3), jnp.asarray(1.0 + 2.0 * f3), jnp.asarray(-f3),
+            jnp.asarray(rhs), implementation="pallas", interpret=True))
         for i in (0, 3, 7):
             for j in (0, 5):
                 f = fac[i, j]
@@ -162,33 +163,25 @@ def test_fused_cyclic_const_dense_oracle():
                                            atol=1e-11, err_msg=f"n={n}")
 
 
-def test_fused_cyclic_phi_layouts_agree():
-    """Axis-1 (transpose-free) and axis-0 cyclic kernels agree, and
-    fused_cyclic_phi picks valid paths for both n%8==0 and odd nphi."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import (
-        fused_cyclic_const, fused_cyclic_const_axis1, fused_cyclic_phi)
-
+@pytest.mark.parametrize("nphi", [16, 40, 15])
+def test_cyclic_kernel_layouts_agree(nphi):
+    """The phi solve's layout (ring along axis 1, moved to the front) on
+    the kernel equals the scan, for ring lengths with and without a power
+    of two."""
     rng = np.random.default_rng(10)
     nr, nz = 6, 9
-    fac = jnp.asarray(0.1 + 5.0 * rng.random((nr, nz)))
-    for nphi in (16, 40):
-        X = jnp.asarray(rng.standard_normal((nr, nphi, nz)))
-        a = fused_cyclic_const_axis1(X, fac, interpret=True)
-        b = jnp.transpose(fused_cyclic_const(jnp.transpose(X, (1, 0, 2)),
-                                             fac, interpret=True), (1, 0, 2))
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-10)
-    # odd nphi goes through the fallback path
-    X = jnp.asarray(rng.standard_normal((nr, 15, nz)))
-    out = fused_cyclic_phi(X, fac, interpret=True)
-    assert out.shape == X.shape
+    fac = 0.1 + 5.0 * rng.random((nr, nz))
+    X = jnp.asarray(rng.standard_normal((nr, nphi, nz)))
+    f3 = jnp.asarray(np.broadcast_to(fac[None], (nphi, nr, nz)))
+    args = (-f3, 1.0 + 2.0 * f3, -f3, jnp.moveaxis(X, 1, 0))
+    a = cyclic_thomas(*args, implementation="pallas", interpret=True)
+    b = cyclic_thomas(*args, implementation="xla")
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_phi_nat_flag_step_level_parity():
-    """PHI_NAT_DEFAULT routes the plain-BE phi leg through the natural
-    kernel with NO step-level output change (same arithmetic sequence as
-    the transpose-pair path)."""
-    from adi_thermal_fields_tpu import CylindricalGrid, Material
-    from adi_thermal_fields_tpu.solvers import pallas_sweeps as ps
+def test_cylindrical_step_kernel_matches_scan_f32():
+    """Step level: the BE cylindrical step on the Triton kernel (r and z
+    sweeps; spectral phi) gives the scan's result bit for bit in f32."""
     from adi_thermal_fields_tpu.step import cylindrical as cyl
     from adi_thermal_fields_tpu.step.cylindrical import RobinBC, ZFaceBC
 
@@ -198,34 +191,24 @@ def test_phi_nat_flag_step_level_parity():
     zbc = ZFaceBC(kind_top="robin", h_top=400.0, T_inf_top=20.0)
     rng = np.random.default_rng(3)
     T = jnp.asarray(rng.uniform(100, 900, g.shape).astype(np.float32))
-    outs = {}
-    try:
-        for flag in (False, True):
-            ps.PHI_NAT_DEFAULT = flag
-            outs[flag] = np.asarray(
-                cyl.adi_step(T, g, mat, dt=0.05, robin_outer=robin,
-                             zbc=zbc, implementation="pallas"))
-    finally:
-        ps.PHI_NAT_DEFAULT = False
-    np.testing.assert_array_equal(outs[True], outs[False])
+    outs = {impl: np.asarray(cyl.adi_step(
+        T, g, mat, dt=0.05, robin_outer=robin, zbc=zbc,
+        implementation=impl, interpret=impl == "pallas"))
+        for impl in ("xla", "pallas")}
+    np.testing.assert_array_equal(outs["pallas"], outs["xla"])
 
 
-def test_fused_cyclic_nat_matches_axis0():
-    """The round-5 natural-layout cyclic kernel (full-buffer dim-0/1
-    relayout, _cyclic_const_kernel_nat) is the SAME arithmetic sequence as
-    the axis-0 kernel on permuted data — exact agreement in interpret mode,
-    including batch shapes that need tile padding and odd ring lengths."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import (
-        fused_cyclic_const, fused_cyclic_const_nat)
-
+@pytest.mark.parametrize("shape", [(16, 64, 128), (13, 25, 100),
+                                   (8, 96, 256)])
+def test_thomas_kernel_ragged_batches_match_scan(shape):
+    """The kernel's masked last block: batch sizes that are and are not
+    multiples of the block, odd solve lengths — exact agreement with the
+    scan in f32 (same operation sequence)."""
     rng = np.random.default_rng(11)
-    for (b1, n, b2) in [(16, 64, 128), (13, 25, 100), (8, 96, 256)]:
-        X = jnp.asarray(rng.standard_normal((b1, n, b2)).astype(np.float32))
-        fac = jnp.asarray(
-            rng.uniform(0.1, 2.0, (b1, b2)).astype(np.float32))
-        ref = jnp.transpose(fused_cyclic_const(jnp.transpose(X, (1, 0, 2)),
-                                               fac, interpret=True),
-                            (1, 0, 2))
-        new = fused_cyclic_const_nat(X, fac, interpret=True)
-        np.testing.assert_array_equal(np.asarray(new), np.asarray(ref),
-                                      err_msg=f"{(b1, n, b2)}")
+    n = shape[0]
+    a, b, c, d = (jnp.asarray(v.astype(np.float32)) for v in
+                  _random_tridiag(rng, n, batch=shape[1:]))
+    ref = thomas(a, b, c, d, implementation="xla")
+    new = thomas(a, b, c, d, implementation="pallas", interpret=True)
+    np.testing.assert_array_equal(np.asarray(new), np.asarray(ref),
+                                  err_msg=f"{shape}")

@@ -218,7 +218,7 @@ def test_melt_pool_enhanced_k_convection_proxy():
 
 def test_engine_varprop_constant_tables_match_plain_engine():
     """make_cartesian_engine(k_table=, cp_table=) with constant tables must
-    reproduce the plain constant-coefficient engine (VERDICT r2 #3: varprop
+    reproduce the plain constant-coefficient engine (varprop
     wired into the flagship engine)."""
     from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
 
@@ -329,23 +329,11 @@ def test_engine_varprop_with_history():
     assert float(ta[1].max()) >= float(ta[0].max())  # longer above 500 C
 
 
-def test_fused_varprop_sweep_matches_scan_oracle():
-    """solvers/pallas_varprop.fused_varprop_sweep rebuilds the per-cell
-    tridiagonal coefficients (streamed pre-masked harmonic faces, Robin
-    sink from the plan-lite code bits) in registers; must match the
-    materialized adi_step_varprop sweep math + Thomas scan exactly in f64
-    interpret mode — scalar-h AND per-cell h-field (radiation) modes."""
+def _varprop_sweep_system(rng, shape, grid, mat, hmode):
+    """An x-sweep system of the varprop step (materialized coefficients)."""
     from adi_thermal_fields_tpu.bc.packs import build_coeff_packs
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import sweep_code
-    from adi_thermal_fields_tpu.solvers.pallas_varprop import (
-        fused_varprop_sweep)
-    from adi_thermal_fields_tpu.solvers.thomas import thomas
     from adi_thermal_fields_tpu.step.cartesian_varprop import _face_g
 
-    rng = np.random.default_rng(0)
-    shape = (40, 16, 24)
-    grid = CartesianGrid(*shape, 1e-3)
-    mat = Material(7800.0, 490.0, 54.0)
     mask = jnp.asarray(rng.random(shape) < 0.8)
     T = jnp.asarray(rng.random(shape) * 900 + 20)
     kf = jnp.asarray(rng.random(shape) * 40 + 10)
@@ -354,38 +342,45 @@ def test_fused_varprop_sweep_matches_scan_oracle():
     dt, theta, t_inf = 0.02, 0.5, 20.0
     dx = grid.dx
     bc_scale = mat.cp / cpf
-    fc0 = _face_g(kf, 0, -1, mask)      # what the kernel streams
-    g_lo = dt * fc0 * w / dx**2
+    g_lo = dt * _face_g(kf, 0, -1, mask) * w / dx**2
     g_hi = dt * _face_g(kf, 0, +1, mask) * w / dx**2
+    h = 15.0 if hmode == "scalar" else jnp.asarray(rng.random(shape) * 40 + 5)
+    packs = build_coeff_packs(mask, grid, mat, robin_h=h)
     a = -theta * g_lo
     c = -theta * g_hi
-    code = sweep_code(mask, None, 0)
-    tg, sk = theta * dt / dx**2, dt / dx
+    b = jnp.where(mask, 1.0 + theta * (g_lo + g_hi)
+                  + dt * packs.coeff[0] * bc_scale, 1.0)
+    d = jnp.where(mask, T + dt * packs.coeff[0] * bc_scale * t_inf, T)
+    return a, b, c, d
 
+
+def test_varprop_sweep_kernel_matches_scan_oracle():
+    """The varprop x-sweep system (harmonic faces, Robin sink rescaled to
+    cp(T)) solved by the Triton kernel (interpret mode) vs the scan, in
+    f64 — scalar-h AND per-cell h-field (radiation) modes."""
+    from adi_thermal_fields_tpu.solvers.thomas import thomas
+
+    rng = np.random.default_rng(0)
+    shape = (40, 16, 24)
+    grid = CartesianGrid(*shape, 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
     for hmode in ("scalar", "field"):
-        h = 15.0 if hmode == "scalar" else \
-            jnp.asarray(rng.random(shape) * 40 + 5)
-        packs = build_coeff_packs(mask, grid, mat, robin_h=h)
-        b = jnp.where(mask, 1.0 + theta * (g_lo + g_hi)
-                      + dt * packs.coeff[0] * bc_scale, 1.0)
-        d = jnp.where(mask, T + dt * packs.coeff[0] * bc_scale * t_inf, T)
-        want = thomas(a, b, c, d)
-        got = fused_varprop_sweep(
-            T, code, fc0, w, tg, sk, t_inf,
-            h=None if hmode == "scalar" else h,
-            rob_c=h if hmode == "scalar" else 0.0, interpret=True)
+        a, b, c, d = _varprop_sweep_system(rng, shape, grid, mat, hmode)
+        want = thomas(a, b, c, d, implementation="xla")
+        got = thomas(a, b, c, d, implementation="pallas", interpret=True)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=0, atol=1e-11)
 
 
 def test_fused_varprop_step_matches_xla_path():
-    """adi_step_varprop_fused == adi_step_varprop (xla) for the flagship
-    Robin-only BC set: scalar h, radiative h-field, and anisotropic
-    per-axis k tables, on anisotropic voxels with a source."""
+    """adi_step_varprop on the Triton kernel (interpret mode) == on the
+    scan for the flagship Robin-only BC set: scalar h, radiative h-field,
+    and anisotropic per-axis k tables, on anisotropic voxels with a
+    source."""
     from adi_thermal_fields_tpu.bc.packs import build_coeff_packs
     from adi_thermal_fields_tpu.bc.radiation import radiative_h
     from adi_thermal_fields_tpu.step.cartesian_varprop import (
-        adi_step_varprop_fused, build_varprop_codes, melt_pool_enhanced_k)
+        melt_pool_enhanced_k)
 
     rng = np.random.default_rng(1)
     shape = (24, 20, 16)
@@ -396,46 +391,27 @@ def test_fused_varprop_step_matches_xla_path():
     kt = melt_pool_enhanced_k(mat.k, 1420.0, 1470.0, enhancement=4.0)
     ct = apparent_cp(mat.cp, mat.cp, 2.7e5, 1420.0, 1470.0)
     src = jnp.asarray(rng.random(shape) * 1e6)
-    codes = build_varprop_codes(mask)
     dt, h = 0.01, 35.0
     packs = build_coeff_packs(mask, grid, mat, robin_h=h)
-
-    want = adi_step_varprop(T, mask, packs, grid, mat, k_table=kt,
-                            cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                            source=src, implementation="xla")
-    got = adi_step_varprop_fused(T, mask, codes, grid, mat, k_table=kt,
-                                 cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                                 robin_h=h, source=src, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=0, atol=1e-10)
-
-    hf = radiative_h(T, 0.5, 20.0, h_conv=15.0)
-    packs_h = build_coeff_packs(mask, grid, mat, robin_h=hf)
-    want = adi_step_varprop(T, mask, packs_h, grid, mat, k_table=kt,
-                            cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                            implementation="xla")
-    got = adi_step_varprop_fused(T, mask, codes, grid, mat, k_table=kt,
-                                 cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                                 h_field=hf, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=0, atol=1e-10)
-
+    packs_h = build_coeff_packs(
+        mask, grid, mat, robin_h=radiative_h(T, 0.5, 20.0, h_conv=15.0))
     kts = (kt, melt_pool_enhanced_k(mat.k * 0.7, 1420.0, 1470.0,
                                     enhancement=3.0), 40.0)
-    want = adi_step_varprop(T, mask, packs, grid, mat, k_table=kts,
-                            cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                            implementation="xla")
-    got = adi_step_varprop_fused(T, mask, codes, grid, mat, k_table=kts,
-                                 cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
-                                 robin_h=h, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=0, atol=1e-10)
+    for pk, ktab, source in ((packs, kt, src), (packs_h, kt, None),
+                             (packs, kts, None)):
+        kw = dict(k_table=ktab, cp_table=ct, dt=dt, theta=0.5, t_inf=20.0,
+                  source=source)
+        want = adi_step_varprop(T, mask, pk, grid, mat,
+                                implementation="xla", **kw)
+        got = adi_step_varprop(T, mask, pk, grid, mat,
+                               implementation="pallas", interpret=True, **kw)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=0, atol=1e-10)
 
 
 def test_engine_fused_varprop_matches_xla_branch():
-    """The engine's fully-fused varprop path (implementation='pallas',
-    Robin-only scalar h / radiative film) must match the materialized
-    XLA varprop branch, including radiation and a moving source."""
+    """The engine's varprop branch on the Triton kernel (interpret mode)
+    must match it on the scan, including radiation and a moving source."""
     from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
     from adi_thermal_fields_tpu.step.cartesian_varprop import (
         apparent_cp, melt_pool_enhanced_k)
@@ -455,7 +431,8 @@ def test_engine_fused_varprop_matches_xla_branch():
     kw = dict(robin_h=40.0, t_inf=20.0, emissivity=0.45, k_table=kt,
               cp_table=ct, source_fn=src_fn)
     p0, a0 = make_cartesian_engine(grid, mat, implementation="xla", **kw)
-    pv, av = make_cartesian_engine(grid, mat, implementation="pallas", **kw)
+    pv, av = make_cartesian_engine(grid, mat, implementation="pallas",
+                                   interpret=True, **kw)
     ref = a0(T0, p0(mask), 0.05, jnp.int32(4), 0.0)
     got = av(T0, pv(mask), 0.05, jnp.int32(4), 0.0)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-10,
@@ -463,9 +440,9 @@ def test_engine_fused_varprop_matches_xla_branch():
 
 
 def test_engine_fused_varprop_sharded_matches_single_device():
-    """The engine's mesh+pallas varprop branch (dist/varprop per-shard fused
-    kernels) vs the single-device fused branch — the pod configuration for
-    latent-heat / melt-pool / radiation physics."""
+    """The engine's mesh varprop branch (scan solves) vs the single-device
+    branch on the Triton kernel (interpret mode) — the multi-device
+    configuration for latent-heat / melt-pool / radiation physics."""
     from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
     from adi_thermal_fields_tpu.dist.cartesian import make_mesh, shard_field
     from adi_thermal_fields_tpu.step.cartesian_varprop import (
@@ -483,13 +460,12 @@ def test_engine_fused_varprop_sharded_matches_single_device():
 
     p1, a1 = make_cartesian_engine(grid, mat, robin_h=15.0, emissivity=0.5,
                                    k_table=kt, cp_table=ct,
-                                   implementation="pallas")
+                                   implementation="pallas", interpret=True)
     ref = a1(T0, p1(mask), 0.02, jnp.int32(3), 0.0)
 
     mesh = make_mesh()
     pm, am = make_cartesian_engine(grid, mat, robin_h=15.0, emissivity=0.5,
-                                   k_table=kt, cp_table=ct, mesh=mesh,
-                                   implementation="pallas")
+                                   k_table=kt, cp_table=ct, mesh=mesh)
     Ts = shard_field(T0, mesh, 0)
     ms = shard_field(mask, mesh, 0)
     got = am(Ts, pm(ms), 0.02, jnp.int32(3), 0.0)
@@ -498,41 +474,29 @@ def test_engine_fused_varprop_sharded_matches_single_device():
                                atol=1e-12)
 
 
-def test_fused_varprop_sweep_axis1_bitwise_vs_axis0():
-    """The natural-layout axis-1 varprop kernel (y-sweep without
-    transposes) is bitwise the transposed axis-0 kernel — elementwise
-    decode and the identical register chain are layout-independent."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import sweep_code
-    from adi_thermal_fields_tpu.solvers.pallas_varprop import (
-        fused_varprop_sweep, fused_varprop_sweep_axis1)
+def test_varprop_sweep_axis1_kernel_bitwise_vs_axis0():
+    """A y-sweep varprop system solved along axis 1 (moved to the front)
+    equals the axis-0 solve of the transposed arrays bit for bit on the
+    kernel, on a ragged batch."""
+    from adi_thermal_fields_tpu.solvers.thomas import (thomas,
+                                                       thomas_along_axis)
 
     rng = np.random.default_rng(4)
-    shape = (16, 40, 24)      # (x, y, z); sweep along y; hostile pads
-    from adi_thermal_fields_tpu.step.cartesian_varprop import _face_g
-
-    mask = jnp.asarray(rng.random(shape) < 0.8)
-    T = jnp.asarray(rng.random(shape) * 900 + 20)
-    kf = jnp.asarray(rng.random(shape) * 40 + 10)
-    fc = _face_g(kf, 1, -1, mask)                 # y-faces, natural layout
-    w = jnp.asarray(rng.random(shape) * 1e-7 + 2e-7)
-    hf = jnp.asarray(rng.random(shape) * 40 + 5)
-    tg, sk, t_inf = 0.37, 0.01, 20.0
-    code_yxz = sweep_code(mask, None, 1)          # (y, x, z)
-    code_nat = jnp.moveaxis(code_yxz, 0, 1)       # (x, y, z)
-    t1 = lambda a: jnp.transpose(a, (1, 0, 2))
-
-    for h in (None, hf):
-        want = t1(fused_varprop_sweep(
-            t1(T), code_yxz, t1(fc), t1(w), tg, sk, t_inf,
-            h=None if h is None else t1(h), rob_c=15.0, interpret=True))
-        got = fused_varprop_sweep_axis1(T, code_nat, fc, w, tg, sk, t_inf,
-                                        h=h, rob_c=15.0, interpret=True)
+    shape = (40, 16, 24)
+    grid = CartesianGrid(*shape, 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    t1 = lambda x: jnp.transpose(x, (1, 0, 2))
+    for hmode in ("scalar", "field"):
+        abcd = _varprop_sweep_system(rng, shape, grid, mat, hmode)
+        want = t1(thomas(*abcd, implementation="pallas", interpret=True))
+        got = thomas_along_axis(*(t1(v) for v in abcd), axis=1,
+                                implementation="pallas", interpret=True)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_engine_fused_varprop_with_history_matches_xla():
-    """The fused varprop branch composes with thermal-history tracking and
-    matches the XLA branch's history outputs."""
+    """The varprop branch on the Triton kernel composes with thermal-
+    history tracking and matches the scan branch's history outputs."""
     from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
 
     grid = CartesianGrid(8, 8, 6, 1e-3)
@@ -548,7 +512,7 @@ def test_engine_fused_varprop_with_history_matches_xla():
     Tx, (pkx, tax) = ax_(T0, px(mask), 0.05, jnp.int32(5), 0.0, hist0)
 
     pf, af = make_cartesian_engine(grid, mat, robin_h=200.0, k_table=kt,
-                                   implementation="pallas",
+                                   implementation="pallas", interpret=True,
                                    history_t_crit=(800.0, 500.0))
     Tf, (pkf, taf) = af(T0, pf(mask), 0.05, jnp.int32(5), 0.0, hist0)
     np.testing.assert_allclose(np.asarray(Tf), np.asarray(Tx), rtol=1e-10,
@@ -559,119 +523,61 @@ def test_engine_fused_varprop_with_history_matches_xla():
                                atol=1e-8)
 
 
-def test_fused_varprop_bf16_mixed_mode():
-    """bf16 state / f32 solve: the varprop kernels stage a downcast output
-    copy (the DMA cannot narrow dtypes).  Interpret-mode checks the mixed
-    path is wired (round-to-nearest); stochastic rounding is TPU-PRNG-only
-    and must raise in interpret mode rather than silently skip."""
-    import pytest
-
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import sweep_code
-    from adi_thermal_fields_tpu.solvers.pallas_varprop import (
-        fused_varprop_sweep, fused_varprop_sweep_axis1)
+def test_varprop_kernel_bf16_mixed_mode():
+    """bf16 systems on the kernel solve in f32 and store bf16: within the
+    bf16 quantization of the f32 solve, along axis 0 and axis 1."""
+    from adi_thermal_fields_tpu.solvers.thomas import thomas_along_axis
 
     rng = np.random.default_rng(5)
     shape = (32, 16, 128)
-    from adi_thermal_fields_tpu.step.cartesian_varprop import _face_g
-
-    mask = jnp.asarray(rng.random(shape) < 0.85)
-    Tf = jnp.asarray(rng.random(shape) * 900 + 20, jnp.float32)
-    kf = jnp.asarray(rng.random(shape) * 40 + 10, jnp.float32)
-    fc = _face_g(kf, 0, -1, mask).astype(jnp.float32)
-    w = jnp.asarray(rng.random(shape) * 1e-7 + 2e-7, jnp.float32)
-    code0 = sweep_code(mask, None, 0)
-    tg, sk, t_inf = 0.37, 0.01, 20.0
-
-    want = fused_varprop_sweep(Tf, code0, fc, w, tg, sk, t_inf, rob_c=15.0,
-                               interpret=True)
-    got = fused_varprop_sweep(Tf.astype(jnp.bfloat16), code0,
-                              fc.astype(jnp.bfloat16),
-                              w.astype(jnp.bfloat16), tg, sk, t_inf,
-                              rob_c=15.0, interpret=True)
-    assert got.dtype == jnp.bfloat16
-    # bf16 inputs quantize at ~0.4% of the field scale
-    np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want), rtol=0.02, atol=3.0)
-
-    code1 = jnp.moveaxis(sweep_code(mask, None, 1), 0, 1)
-    fc1 = _face_g(kf, 1, -1, mask).astype(jnp.float32)
-    want1 = fused_varprop_sweep_axis1(Tf, code1, fc1, w, tg, sk, t_inf,
-                                      rob_c=15.0, interpret=True)
-    got1 = fused_varprop_sweep_axis1(Tf.astype(jnp.bfloat16), code1,
-                                     fc1.astype(jnp.bfloat16),
-                                     w.astype(jnp.bfloat16), tg, sk, t_inf,
-                                     rob_c=15.0, interpret=True)
-    assert got1.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(got1, np.float32),
-                               np.asarray(want1), rtol=0.02, atol=3.0)
-
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        fused_varprop_sweep(Tf.astype(jnp.bfloat16), code0,
-                            fc.astype(jnp.bfloat16),
-                            w.astype(jnp.bfloat16), tg, sk, t_inf,
-                            rob_c=15.0, rng_seed=7, interpret=True)
+    grid = CartesianGrid(*shape, 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    abcd = [v.astype(jnp.float32)
+            for v in _varprop_sweep_system(rng, shape, grid, mat, "scalar")]
+    for axis in (0, 1):
+        mv = lambda x: jnp.moveaxis(x, 0, axis)
+        want = thomas_along_axis(*(mv(v) for v in abcd), axis=axis,
+                                 implementation="pallas", interpret=True)
+        got = thomas_along_axis(*(mv(v).astype(jnp.bfloat16) for v in abcd),
+                                axis=axis, implementation="pallas",
+                                interpret=True)
+        assert got.dtype == jnp.bfloat16
+        # bf16 inputs quantize at ~0.4% of the field scale
+        np.testing.assert_allclose(np.asarray(got, np.float32),
+                                   np.asarray(want), rtol=0.02, atol=3.0)
 
 
-def test_fused_varprop_theta_sweep_matches_unfused_chain():
-    """solvers/pallas_varprop.fused_varprop_theta_sweep (ring-buffer fused
-    theta-pass + x-sweep, zero halo DMAs) must match the unfused
-    varprop_theta_rhs + fused_varprop_sweep chain to FMA-contraction
-    precision in f64 interpret mode (the two programs legitimately
-    contract multiply-adds differently).  Covers scalar-h, h-field, source, and h+src,
-    on shapes that pad every dimension and span multiple (y, z) tiles."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import sweep_code
-    from adi_thermal_fields_tpu.solvers.pallas_varprop import (
-        fused_varprop_sweep, fused_varprop_theta_sweep, varprop_theta_rhs)
-    from adi_thermal_fields_tpu.step.cartesian_varprop import _face_g
+def test_varprop_kernel_matches_scan_h_and_source():
+    """Varprop steps with scalar h, an h field, a source, and both, on a
+    grid whose every batch is ragged for the kernel block: the kernel
+    (interpret mode) vs the scan in f64."""
+    from adi_thermal_fields_tpu.bc.packs import build_coeff_packs
 
     rng = np.random.default_rng(11)
-    shape = (24, 40, 280)        # pads: n 24->24, y 40->40, z 280->384 (3 tiles)
+    shape = (24, 40, 28)
+    grid = CartesianGrid(*shape, 1e-3, dy=2e-3, dz=3e-3)
+    mat = Material(7800.0, 490.0, 54.0)
     mask = jnp.asarray(rng.random(shape) < 0.8)
     T = jnp.asarray(rng.random(shape) * 900 + 20)
-    kf = jnp.asarray(rng.random(shape) * 40 + 10)
-    w = jnp.asarray(rng.random(shape) * 1e-7 + 2e-7)
     hf = jnp.asarray(rng.random(shape) * 40 + 5)
     srcf = jnp.asarray(rng.random(shape) * 1e6)
-    fx = _face_g(kf, 0, -1, mask)
-    fy = _face_g(kf, 1, -1, mask)
-    fz = _face_g(kf, 2, -1, mask)
-    code = sweep_code(mask, None, 0)
-    dt, theta, t_inf = 0.02, 0.5, 20.0
-    inv_d2 = [1e6, 0.25e6, 1.0 / 9e-6]
-    cw = (1 - theta) * dt
-    tg = theta * dt * inv_d2[0]
-    sk = dt / 1e-3
-    mask8 = mask.astype(jnp.int8)
-
-    for h, src in ((None, None), (hf, None), (None, srcf), (hf, srcf)):
-        R0 = varprop_theta_rhs(T, fx, fy, fz, w, mask8, cw, inv_d2,
-                               src=src, dt=dt, interpret=True)
-        want = fused_varprop_sweep(R0, code, fx, w, tg, sk, t_inf, h=h,
-                                   rob_c=15.0, interpret=True)
-        got = fused_varprop_theta_sweep(T, code, fx, fy, fz, w, cw, inv_d2,
-                                        tg, sk, t_inf, h=h, rob_c=15.0,
-                                        src=src, dt=dt, interpret=True)
+    kt = lambda T: 40.0 + 0.01 * T
+    for h, src in ((15.0, None), (hf, None), (15.0, srcf), (hf, srcf)):
+        packs = build_coeff_packs(mask, grid, mat, robin_h=h)
+        kw = dict(k_table=kt, dt=0.02, theta=0.5, t_inf=20.0, source=src)
+        want = adi_step_varprop(T, mask, packs, grid, mat,
+                                implementation="xla", **kw)
+        got = adi_step_varprop(T, mask, packs, grid, mat,
+                               implementation="pallas", interpret=True, **kw)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=1e-13, atol=0.0)
 
-    # sweep half alone (cw = 0 -> R0 = T): same contraction-level bound
-    # (even identical formulas compile with different FMA choices in the
-    # two kernels' surrounding graphs)
-    want = fused_varprop_sweep(T, code, fx, w, tg, sk, t_inf, rob_c=15.0,
-                               interpret=True)
-    got = fused_varprop_theta_sweep(T, code, fx, fy, fz, w, 0.0, inv_d2,
-                                    tg, sk, t_inf, rob_c=15.0, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-13, atol=0.0)
 
-
-def test_adi_step_varprop_fused_fuse_theta():
-    """adi_step_varprop_fused(fuse_theta=True) must match the default
-    (unfused theta-pass) step to FMA-contraction precision in f64, through
-    the full step (all three sweeps + re-lays), with and without radiation
-    h-field and volumetric source."""
-    from adi_thermal_fields_tpu.step.cartesian_varprop import (
-        adi_step_varprop_fused, build_varprop_codes)
+def test_varprop_step_kernel_matches_scan_callable_tables():
+    """Callable k(T)/cp(T) tables through the full step (all three sweeps)
+    on an anisotropic grid with a long z axis: kernel (interpret mode) vs
+    scan in f64, with and without an h field and a source."""
+    from adi_thermal_fields_tpu.bc.packs import build_coeff_packs
 
     rng = np.random.default_rng(12)
     grid = CartesianGrid(20, 24, 136, 1e-3, 2e-3, 1.5e-3)
@@ -680,20 +586,16 @@ def test_adi_step_varprop_fused_fuse_theta():
     T = jnp.asarray(rng.random(grid.shape) * 900 + 20)
     hf = jnp.asarray(rng.random(grid.shape) * 40 + 5)
     srcf = jnp.asarray(rng.random(grid.shape) * 1e6)
-    codes = build_varprop_codes(mask)
     kt = lambda T: 40.0 + 0.01 * T
     ct = lambda T: 450.0 + 0.1 * T
-
-    for kw in ({"robin_h": 15.0}, {"h_field": hf},
-               {"robin_h": 15.0, "source": srcf}):
-        want = adi_step_varprop_fused(T, mask, codes, grid, mat,
-                                      k_table=kt, cp_table=ct, dt=0.02,
-                                      theta=0.5, t_inf=20.0,
-                                      interpret=True, **kw)
-        got = adi_step_varprop_fused(T, mask, codes, grid, mat,
-                                     k_table=kt, cp_table=ct, dt=0.02,
-                                     theta=0.5, t_inf=20.0, interpret=True,
-                                     fuse_theta=True, **kw)
+    for h, src in ((15.0, None), (hf, None), (15.0, srcf)):
+        packs = build_coeff_packs(mask, grid, mat, robin_h=h)
+        kw = dict(k_table=kt, cp_table=ct, dt=0.02, theta=0.5, t_inf=20.0,
+                  source=src)
+        want = adi_step_varprop(T, mask, packs, grid, mat,
+                                implementation="xla", **kw)
+        got = adi_step_varprop(T, mask, packs, grid, mat,
+                               implementation="pallas", interpret=True, **kw)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=1e-13, atol=0.0)
 
@@ -726,59 +628,6 @@ def test_bimetal_substrate_deposit_cartesian():
     assert e_sub(fast) > 1.3 * e_sub(same)
 
 
-def test_varprop_fields_kernel_matches_xla():
-    """The one-HBM-pass Pallas fields build (solvers/pallas_varprop.
-    varprop_fields, streamed T+mask -> fx/fy/fz/w) matches the XLA
-    formulation of build_varprop_fields to a few f32 ulps, across
-    property-table / constant / k-only configurations, hostile (padded)
-    shapes, and a random void mask; the PropertyTable clamp-sum itself
-    matches jnp.interp (checked in its own right below).  bf16 states
-    compute at f32 in-kernel and downcast at the store."""
-    from adi_thermal_fields_tpu.step.cartesian_varprop import (
-        build_varprop_fields, melt_pool_enhanced_k)
-
-    rng = np.random.default_rng(11)
-    mat = Material(7800.0, 490.0, 54.0)
-    for shape in [(12, 16, 128), (9, 13, 100)]:
-        T = jnp.asarray(rng.random(shape) * 1800, jnp.float32)
-        mask = jnp.asarray(rng.random(shape) > 0.25)
-        cases = [
-            (melt_pool_enhanced_k(30.0, 1420.0, 1470.0, 4.0),
-             apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0)),
-            (None, None),
-            (PropertyTable((0.0, 2000.0), (40.0, 60.0)), None),
-        ]
-        for kt, ct in cases:
-            fc_x, w_x = build_varprop_fields(T, mask, mat, kt, ct)
-            fc_k, w_k = build_varprop_fields(T, mask, mat, kt, ct,
-                                             use_kernel=True, interpret=True)
-            scale = max(float(jnp.max(jnp.abs(f))) for f in fc_x)
-            for a, b in zip(fc_x, fc_k):
-                assert float(jnp.max(jnp.abs(a - b))) < 1e-6 * scale
-            assert float(jnp.max(jnp.abs(w_x - w_k))) < 1e-12
-
-    # ineligible configurations fall back to the XLA path (same arrays out)
-    kt3 = (54.0, PropertyTable((0.0, 2000.0), (40.0, 60.0)), 30.0)
-    T = jnp.asarray(rng.random((8, 8, 128)) * 1800, jnp.float32)
-    mask = jnp.ones(T.shape, bool)
-    fc_a, w_a = build_varprop_fields(T, mask, mat, kt3, None,
-                                     use_kernel=True, interpret=True)
-    fc_b, w_b = build_varprop_fields(T, mask, mat, kt3, None)
-    for a, b in zip(fc_a, fc_b):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # bf16 states: f32 in-kernel compute, bf16 stores
-    Tb = jnp.asarray(rng.random((8, 16, 128)) * 1800, jnp.bfloat16)
-    mask = jnp.asarray(rng.random((8, 16, 128)) > 0.25)
-    kt = melt_pool_enhanced_k(30.0, 1420.0, 1470.0, 4.0)
-    (fxk, _, _), _ = build_varprop_fields(Tb, mask, mat, kt, None,
-                                          use_kernel=True, interpret=True)
-    (fxx, _, _), _ = build_varprop_fields(Tb, mask, mat, kt, None)
-    assert fxk.dtype == jnp.bfloat16
-    assert float(jnp.max(jnp.abs(fxk.astype(jnp.float32)
-                                 - fxx.astype(jnp.float32)))) < 1.0
-
-
 def test_property_table_clamp_sum_matches_interp():
     """PropertyTable's clamp-sum evaluation is the same piecewise-linear
     function as jnp.interp with end clamping: exact at f64, few-ulp at
@@ -798,69 +647,55 @@ def test_property_table_clamp_sum_matches_interp():
         assert rel < 1e-5, rel
 
 
-def test_fused_varprop_sweep_nat_rhs_out_bf16_matches_transposed():
-    """bf16 states through the NATURAL rhs/out varprop sweep (round 5:
-    the f32-only restriction lifted — f32 in-VMEM relayout + downcast in
-    the output staging).  Both paths downcast the SAME f32 solve values
-    (round-to-nearest), so the nat result must equal the transposed-path
-    result exactly."""
-    from adi_thermal_fields_tpu.solvers.pallas_sweeps import sweep_code
-    from adi_thermal_fields_tpu.solvers.pallas_varprop import (
-        fused_varprop_sweep)
-    from adi_thermal_fields_tpu.step.cartesian_varprop import _face_g
+def test_thomas_along_z_kernel_bf16_matches_transposed():
+    """bf16 systems solved along the contiguous z axis (thomas_along_axis
+    moves it to the front) equal the axis-0 solve of the transposed
+    arrays exactly: the same f32 solve, the same round-to-nearest store."""
+    from adi_thermal_fields_tpu.solvers.thomas import (thomas,
+                                                       thomas_along_axis)
 
     rng = np.random.default_rng(9)
-    shape = (136, 16, 24)      # n not a chunk multiple; hostile lanes
-    mask = jnp.asarray(rng.random(shape) < 0.85)
-    Tb = jnp.asarray(rng.random(shape) * 900 + 20,
-                     jnp.float32).astype(jnp.bfloat16)
-    kf = jnp.asarray(rng.random(shape) * 40 + 10, jnp.float32)
-    fc = _face_g(kf, 0, -1, mask).astype(jnp.bfloat16)
-    w = jnp.asarray(rng.random(shape) * 1e-7 + 2e-7,
-                    jnp.float32).astype(jnp.bfloat16)
-    h = jnp.asarray(rng.random(shape) * 30 + 5,
-                    jnp.float32).astype(jnp.bfloat16)
-    code0 = sweep_code(mask, None, 0)
-    tg, sk, t_inf = 0.37, 0.01, 20.0
-
-    for hf in (None, h):
-        want = fused_varprop_sweep(Tb, code0, fc, w, tg, sk, t_inf,
-                                   h=hf, rob_c=15.0, interpret=True)
-        got = fused_varprop_sweep(jnp.transpose(Tb, (1, 2, 0)), code0,
-                                  fc, w, tg, sk, t_inf, h=hf, rob_c=15.0,
-                                  nat_rhs_out=True, interpret=True)
+    shape = (136, 16, 24)
+    grid = CartesianGrid(*shape, 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    for hmode in ("scalar", "field"):
+        abcd = [v.astype(jnp.bfloat16) for v in
+                _varprop_sweep_system(rng, shape, grid, mat, hmode)]
+        want = thomas(*abcd, implementation="pallas", interpret=True)
+        t2 = lambda x: jnp.transpose(x, (1, 2, 0))
+        got = thomas_along_axis(*(t2(v) for v in abcd), axis=2,
+                                implementation="pallas", interpret=True)
         assert got.dtype == jnp.bfloat16
         np.testing.assert_array_equal(
             np.asarray(jnp.transpose(got, (2, 0, 1)), np.float32),
             np.asarray(want, np.float32))
 
 
-def test_adi_step_varprop_fused_bf16_znat_flag(monkeypatch):
-    """Step-level: Z_NAT_VP_BF16_DEFAULT routes bf16 states through the
-    natural-layout z solve; must match the transposed-z default exactly
-    (same f32 solve, same round-to-nearest downcast)."""
-    import adi_thermal_fields_tpu.step.cartesian_varprop as cv
-    from adi_thermal_fields_tpu import CartesianGrid, Material
+def test_varprop_step_bf16_kernel_matches_scan():
+    """Step level: a bf16 state through the engine's varprop branch (f32
+    solve, one round-to-nearest store per sub-step) on the kernel and on
+    the scan gives the same result."""
+    from adi_thermal_fields_tpu.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu.step.cartesian_varprop import (
+        melt_pool_enhanced_k)
 
-    rng = np.random.default_rng(13)
     shape = (24, 16, 40)
     grid = CartesianGrid(*shape, 1e-3)
     mat = Material(7800.0, 490.0, 54.0)
     m = np.zeros(shape, bool)
     m[:, :, :24] = True
     mask = jnp.asarray(m)
-    codes = cv.build_varprop_codes(mask)
     T = jnp.where(mask, 1400.0, 20.0).astype(jnp.bfloat16)
-    kt = cv.melt_pool_enhanced_k(mat.k, 1420.0, 1470.0, enhancement=4.0)
-    ct = cv.apparent_cp(mat.cp, mat.cp, 2.7e5, 1420.0, 1470.0)
-    kw = dict(k_table=kt, cp_table=ct, dt=jnp.float32(0.02), theta=0.5,
-              t_inf=20.0, robin_h=15.0, emissivity=0.5, interpret=True,
-              gstreams=False)
-
-    monkeypatch.setattr(cv, "Z_NAT_VP_BF16_DEFAULT", False)
-    a = cv.adi_step_varprop_fused(T, mask, codes, grid, mat, **kw)
-    monkeypatch.setattr(cv, "Z_NAT_VP_BF16_DEFAULT", True)
-    b = cv.adi_step_varprop_fused(T, mask, codes, grid, mat, **kw)
-    assert b.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(np.asarray(a, np.float32),
-                                  np.asarray(b, np.float32))
+    kt = melt_pool_enhanced_k(mat.k, 1420.0, 1470.0, enhancement=4.0)
+    ct = apparent_cp(mat.cp, mat.cp, 2.7e5, 1420.0, 1470.0)
+    out = {}
+    for impl in ("pallas", "xla"):
+        prep, adv = make_cartesian_engine(
+            grid, mat, k_table=kt, cp_table=ct, t_inf=20.0, robin_h=15.0,
+            emissivity=0.5, dtype=jnp.bfloat16, implementation=impl,
+            interpret=impl == "pallas")
+        out[impl] = adv(T, prep(mask), jnp.bfloat16(0.02), jnp.int32(2),
+                        0.0)
+    assert out["pallas"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(out["pallas"], np.float32),
+                                  np.asarray(out["xla"], np.float32))
